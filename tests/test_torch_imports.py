@@ -1,0 +1,54 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+_ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [_ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(_ROOT)))
+def test_no_jax_or_repro_import(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_every_port_module_imports_without_jax():
+    src = _ROOT / "src"
+    names = ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages([str(src / "repro_torch")],
+                                              prefix="repro_torch.")]
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for blocked in ("jax", "jaxlib", "repro"):
+            sys.modules[blocked] = None  # any import of them now fails
+        for name in {names!r}:
+            importlib.import_module(name)
+        print(len({names!r}))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(src))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) == len(names) >= 12
