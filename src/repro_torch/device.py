@@ -1,4 +1,4 @@
-"""The port's device rule and its forward-only guard.
+"""The port's device rule and the raw kernel wrappers' grad guard.
 
 Every entry point resolves its device here: ``cuda`` unless the caller
 asks for another device, and an error -- never a quiet CPU run -- when no
@@ -34,9 +34,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def forward_only(*tensors) -> None:
-    """Refuse tensors that require grad: this slice has no backward, and
-    autograd through the collectives would hand back wrong gradients."""
+    """Refuse tensors that require grad.  The raw kernel wrappers have no
+    backward (the JAX package has no VJP on a raw ``pallas_call``
+    either): differentiable calls go through ``kernels.ops``, whose
+    autograd Functions run the kernels on detached operands."""
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "repro_torch is forward-only: training is a later slice "
-            "(got a tensor with requires_grad=True)")
+            "a raw kernel wrapper is not differentiable; call the "
+            "kernels.ops dispatchers (got a tensor with requires_grad=True)")

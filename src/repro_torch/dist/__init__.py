@@ -1,2 +1,3 @@
-"""The paper's distributed conv and matmul on explicit process grids,
-per rank over ``torch.distributed`` (forward only in this slice)."""
+"""The paper's distributed conv and matmul on explicit process grids, per
+rank over ``torch.distributed``, with their backward passes, and the
+grid-parallel CNN train step (``dist.train``)."""

@@ -1,4 +1,4 @@
-"""Accounted collectives and ring schedules -- the forward subset of
+"""Accounted collectives and ring schedules -- the port of
 ``repro/dist/collectives.py``.
 
 Where the JAX package runs one ``shard_map``'d function over a named
@@ -24,12 +24,23 @@ Every collective goes through an accounted wrapper, and under
 carrying the elements it puts on the wire, by the model the JAX package's
 static verifier applies to compiled HLO: a collective-permute counts its
 buffer once per call (on every rank of the program, sender or not), an
-all-gather ``shard * (g - 1)``, an all-reduce ``2 * v * (g - 1) / g``.
+all-gather ``shard * (g - 1)``, a reduce-scatter ``v * (g - 1) / g``, an
+all-reduce ``2 * v * (g - 1) / g``, over the group of every axis named.
+
+Gradients.  The ops' backward passes are written out (``dist.conv2d``,
+``dist.matmul``, ``dist.halo``); between ops, the glue's collectives
+differentiate by one convention: a tensor replicated over ranks has its
+complete cotangent on every rank.  So :func:`psum`'s backward is the
+identity, :func:`unshard` (an all-gather) transposes to a slice, and
+:func:`shard` of a replicated tensor transposes to a gather of the
+gradient shards (after a psum over the axes whose ranks each hold only a
+partial sum, when the caller names them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -67,10 +78,11 @@ def record_collectives():
         _RECORD_STACK.pop()
 
 
-def _note(kind: str, axis: str, tag: str, wire_elems: float) -> None:
+def _note(kind: str, axes, tag: str, wire_elems: float) -> None:
     if _RECORD_STACK:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
         _RECORD_STACK[-1].append(
-            CollectiveNote(kind, (axis,), tag, float(wire_elems)))
+            CollectiveNote(kind, axes, tag, float(wire_elems)))
 
 
 # --------------------------------------------------------------------------
@@ -124,11 +136,7 @@ def _spec_axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def shard(t: torch.Tensor, mesh: DeviceMesh, spec) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec``, what ``shard_map``'s
-    ``in_specs`` hand each device: one entry per dim -- ``None``
-    (replicated), an axis name, or a tuple of axis names, major first
-    (``("c", "k")`` makes block ``c * Pk + k``)."""
+def _slice(t: torch.Tensor, mesh: DeviceMesh, spec) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         parts, idx = 1, 0
         for a in _spec_axes(entry):
@@ -142,15 +150,62 @@ def shard(t: torch.Tensor, mesh: DeviceMesh, spec) -> torch.Tensor:
     return t.contiguous()
 
 
-def unshard(t: torch.Tensor, mesh: DeviceMesh, spec, *,
-            tag: str = "reshard") -> torch.Tensor:
-    """Inverse of :func:`shard`: all-gather the blocks back into the
-    global tensor on every rank (minor axes first)."""
+def _gather(t: torch.Tensor, mesh: DeviceMesh, spec, tag: str):
     for dim, entry in enumerate(spec):
         for a in reversed(_spec_axes(entry)):
             if axis_size(mesh, a) > 1:
                 t = all_gather(t, mesh, a, dim=dim, tag=tag)
     return t
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, spec, grad_psum_axes):
+        ctx.mesh, ctx.spec, ctx.axes = mesh, spec, grad_psum_axes
+        return _slice(t, mesh, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axes:
+            g = psum(g, ctx.mesh, ctx.axes, tag="reshard")
+        return _gather(g, ctx.mesh, ctx.spec, "reshard"), None, None, None
+
+
+class _Unshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, spec, tag):
+        ctx.mesh, ctx.spec = mesh, spec
+        return _gather(t, mesh, spec, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.mesh, ctx.spec), None, None, None
+
+
+def shard(t: torch.Tensor, mesh: DeviceMesh, spec, *,
+          grad_psum_axes=()) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``, what ``shard_map``'s
+    ``in_specs`` hand each device: one entry per dim -- ``None``
+    (replicated), an axis name, or a tuple of axis names, major first
+    (``("c", "k")`` makes block ``c * Pk + k``).
+
+    Differentiable for a replicated ``t``: the gradient shards are
+    gathered (tag ``"reshard"``) so every rank holds the complete
+    gradient, after a psum over ``grad_psum_axes`` when each rank of those
+    axes holds only a partial sum of its shard's gradient."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Shard.apply(t, mesh, spec, tuple(grad_psum_axes))
+    return _slice(t, mesh, spec)
+
+
+def unshard(t: torch.Tensor, mesh: DeviceMesh, spec, *,
+            tag: str = "reshard") -> torch.Tensor:
+    """Inverse of :func:`shard`: all-gather the blocks back into the
+    global tensor on every rank (minor axes first).  Differentiable: the
+    backward slices this rank's block of the (complete) cotangent."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Unshard.apply(t, mesh, spec, tag)
+    return _gather(t, mesh, spec, tag)
 
 
 # --------------------------------------------------------------------------
@@ -179,14 +234,94 @@ def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis: str, perm, *,
     return out
 
 
-def psum(x: torch.Tensor, mesh: DeviceMesh, axis: str, *,
-         tag: str = "") -> torch.Tensor:
-    """All-reduce (sum) over one mesh axis; returns a new tensor."""
-    g = axis_size(mesh, axis)
-    _note("all-reduce", axis, tag, 2.0 * x.numel() * (g - 1) / g)
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=mesh.get_group(axis))
+@functools.lru_cache(maxsize=None)
+def _axes_group(mesh: DeviceMesh, axes: tuple):
+    """The process group over the mesh axes ``axes`` that holds this rank.
+    For several axes every rank must reach this at the same point the
+    first time (it creates the subgroups of every rank)."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = list(mesh.mesh_dim_names)
+    ranks = mesh.mesh.permute(
+        [i for i, a in enumerate(names) if a not in axes]
+        + [names.index(a) for a in axes])
+    size = math.prod(axis_size(mesh, a) for a in axes)
+    group, _ = dist.new_subgroups_by_enumeration(
+        ranks.reshape(-1, size).tolist())
+    return group
+
+
+def _live_axes(mesh: DeviceMesh, axes) -> tuple:
+    """``axes`` (one name or several), without those of size 1."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in axes if axis_size(mesh, a) > 1)
+
+
+def _psum(x, mesh, axes, tag):
+    g = math.prod(axis_size(mesh, a) for a in axes)
+    _note("all-reduce", axes, tag, 2.0 * x.numel() * (g - 1) / g)
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    live = _live_axes(mesh, axes)
+    if live:
+        dist.all_reduce(out, group=_axes_group(mesh, live))
     return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, tag):
+        return _psum(x, mesh, axes, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the sum is replicated over the axes: each rank's cotangent is
+        # complete and is its partial's cotangent too
+        return g, None, None, None
+
+
+def psum(x: torch.Tensor, mesh: DeviceMesh, axes, *,
+         tag: str = "") -> torch.Tensor:
+    """All-reduce (sum) over one mesh axis or a tuple of them; returns a
+    new tensor.  Differentiable (identity backward, see the module
+    docstring)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Psum.apply(x, mesh, axes, tag)
+    return _psum(x, mesh, axes, tag)
+
+
+def pmean(x: torch.Tensor, mesh: DeviceMesh, axes, *,
+          tag: str = "") -> torch.Tensor:
+    """All-reduce mean over one mesh axis or a tuple of them."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return psum(x, mesh, axes, tag=tag) / math.prod(
+        axis_size(mesh, a) for a in axes)
+
+
+def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
+                 tag: str = "") -> torch.Tensor:
+    """Reduce-scatter over one axis: chunk ``r`` (in axis order along
+    ``dim``) of the sum over the axis' ranks ends on rank ``r``
+    (``lax.psum_scatter(..., tiled=True)``).  Gloo has no reduce-scatter,
+    so there it runs as an all-reduce and a slice; the note records the
+    reduce-scatter the schedule calls for."""
+    g = axis_size(mesh, axis)
+    if x.shape[dim] % g:
+        raise ValueError(f"reduce-scatter dim {dim} of extent "
+                         f"{x.shape[dim]} not divisible by axis size {g}")
+    _note("reduce-scatter", axis, tag, x.numel() * (g - 1) / g)
+    group = mesh.get_group(axis)
+    chunk = x.shape[dim] // g
+    if dist.get_backend(group) == "nccl":
+        full = x.movedim(dim, 0).contiguous()
+        out = torch.empty((chunk,) + tuple(full.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, full, group=group)
+        return out.movedim(0, dim).contiguous()
+    full = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(full, group=group)
+    return full.narrow(dim, axis_index(mesh, axis) * chunk,
+                       chunk).contiguous()
 
 
 def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
@@ -283,3 +418,57 @@ def gather_axis(x, mesh: DeviceMesh, axis: str, *, dim: int, schedule: str):
     if schedule in ("ring", "ring2"):
         return ring_all_gather(x, mesh, axis, dim=dim)
     return all_gather(x, mesh, axis, dim=dim, tag="gather_axis")
+
+
+def ring_scatter_reduce(mesh: DeviceMesh, axis: str, produce):
+    """Ring reduce-scatter with on-the-fly chunk production -- the
+    transpose of :func:`ring_reduce`.
+
+    ``produce(r, step)`` returns this rank's additive contribution to the
+    chunk that must end on rank ``r``.  The token for chunk ``r`` starts
+    on rank ``r + 1`` and travels the whole ring, gathering every rank's
+    contribution, and arrives home after ``g - 1`` hops; the return value
+    is the fully reduced own chunk.  Wire: ``chunk * (g - 1)`` per rank,
+    without ever materializing the concatenation."""
+    g = axis_size(mesh, axis)
+    me = axis_index(mesh, axis)
+    cur = produce((me - 1) % g, 0)
+    perm = [(i, (i + 1) % g) for i in range(g)]
+    for t in range(1, g):
+        cur = ppermute(cur, mesh, axis, perm, tag="ring_scatter_reduce")
+        cur = cur + produce((me - 1 - t) % g, t)
+    return cur
+
+
+def ring_reduce_scatter(x, mesh: DeviceMesh, axis: str, *, dim: int):
+    """Reduce-scatter ``x`` over ``axis`` via a neighbour ring: chunk
+    ``r`` of the result (rank order along ``dim``) ends on rank ``r``
+    holding the sum over ranks -- the transpose of
+    :func:`ring_all_gather`, at the same wire volume."""
+    g = axis_size(mesh, axis)
+    if g == 1:
+        return x
+    if x.shape[dim] % g:
+        raise ValueError(f"reduce-scatter dim {dim} of extent "
+                         f"{x.shape[dim]} not divisible by axis size {g}")
+    chunk = x.shape[dim] // g
+    me = axis_index(mesh, axis)
+    perm = [(i, (i + 1) % g) for i in range(g)]
+    cur = x.narrow(dim, ((me - 1) % g) * chunk, chunk)
+    for t in range(1, g):
+        cur = ppermute(cur, mesh, axis, perm, tag="ring_reduce_scatter")
+        cur = cur + x.narrow(dim, ((me - 1 - t) % g) * chunk, chunk)
+    return cur
+
+
+def scatter_axis(x, mesh: DeviceMesh, axis: str, *, dim: int,
+                 schedule: str):
+    """Reduce-scatter over a mesh axis -- the transpose of
+    :func:`gather_axis` (rank-ordered chunks along ``dim``), dispatched on
+    the schedule the same way."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, "
+                         f"got {schedule!r}")
+    if schedule in ("ring", "ring2"):
+        return ring_reduce_scatter(x, mesh, axis, dim=dim)
+    return psum_scatter(x, mesh, axis, dim=dim, tag="scatter_axis")

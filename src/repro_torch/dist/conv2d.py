@@ -1,5 +1,5 @@
 """Distributed 2-D convolution on the paper's 5-axis processor grid -- the
-forward of ``repro/dist/conv2d.py``.
+port of ``repro/dist/conv2d.py``.
 
 Grid tuple convention: ``(Pb, Ph, Pw, Pk, Pc)`` over mesh axes
 ``("b", "h", "w", "k", "c")`` -- batch, image height, image width, output
@@ -28,8 +28,20 @@ global image edge.
 each as it arrives; ``schedule="ring2"`` rotates Ker's C-chunks around
 the b-ring as well (:func:`collectives.ring_zip`), on the grids
 :func:`conv_ring2_supported` accepts (``Pb == 1``, ``Pk == 1`` or
-``Pb == Pk == 2``) and falls back to ``"ring"`` elsewhere.  The
-forward-only slice: the custom VJP of the JAX package is a later slice.
+``Pb == Pk == 2``) and falls back to ``"ring"`` elsewhere.
+
+**Differentiation** (the JAX package's ``custom_vjp``, here a
+``torch.autograd.Function``): the backward rematerializes the forward
+halo and gathers and transposes the forward communication -- the c-axis
+all-reduce to nothing (the Out cotangent is complete on every c rank),
+the k-axis In gather to a k-axis reduce-scatter of dIn, the b-axis Ker
+gather to a b-axis reduce-scatter of dKer (after a psum over the spatial
+axes, which replicate Ker), the halo exchange to
+:func:`halo.halo_accumulate_1d`; ``ring2`` streams both gradients around
+their rings (:func:`collectives.ring_scatter_reduce`).  Every local
+contraction, forward and backward, goes through ``kernels.ops``.  The
+native differentiation with saved gathered residuals
+(``save_gathered=True``) is a later slice.
 """
 
 from __future__ import annotations
@@ -38,14 +50,15 @@ import functools
 from typing import NamedTuple, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.device import forward_only
 from repro_torch.dist.collectives import (SCHEDULES, axis_index, gather_axis,
-                                          make_mesh, mesh_grid, psum,
-                                          ring_reduce, ring_zip,
-                                          stream_elems)
-from repro_torch.dist.halo import halo_exchange_1d
+                                          make_mesh, mesh_grid, ppermute,
+                                          psum, ring_reduce,
+                                          ring_scatter_reduce, ring_zip,
+                                          scatter_axis, stream_elems)
+from repro_torch.dist.halo import halo_accumulate_1d, halo_exchange_1d
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import pad_amounts as _pad_amounts
 
@@ -55,6 +68,10 @@ KER_SPEC = ("k", ("c", "b"), None, None)
 OUT_SPEC = ("b", "k", "h", "w")
 
 Padding = Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]
+
+SAVE_GATHERED_LATER = (
+    "save_gathered=True (native differentiation with saved gathered "
+    "residuals) is a later slice of the port")
 
 
 def make_conv_mesh(grid, *, device=None) -> DeviceMesh:
@@ -115,17 +132,24 @@ def _spatial_plan(size: int, k: int, s: int, pad, p: int,
 
 
 def _halo_and_window(xl, mesh, plans: Tuple[SpatialPlan, SpatialPlan]):
-    """Halo-extend the local shard and slice this rank's conv window."""
+    """Halo-extend the local shard and slice this rank's conv window.
+
+    Returns ``(extended_block, window, (off_h, off_w))``: the forward
+    consumes the window; the backward also needs the block and the slice
+    offsets to transpose the reconstruction."""
     plan_h, plan_w = plans
     xh = halo_exchange_1d(xl, mesh, "h", spatial_dim=2, lo=plan_h.lo_x,
                           hi=plan_h.hi_x)
     xh = halo_exchange_1d(xh, mesh, "w", spatial_dim=3, lo=plan_w.lo_x,
                           hi=plan_w.hi_x)
+    off_h = plan_h.offset(axis_index(mesh, "h"))
+    off_w = plan_w.offset(axis_index(mesh, "w"))
+    xwin = xh
     if not plan_h.identity_slice:
-        xh = xh.narrow(2, plan_h.offset(axis_index(mesh, "h")), plan_h.win)
+        xwin = xwin.narrow(2, off_h, plan_h.win)
     if not plan_w.identity_slice:
-        xh = xh.narrow(3, plan_w.offset(axis_index(mesh, "w")), plan_w.win)
-    return xh
+        xwin = xwin.narrow(3, off_w, plan_w.win)
+    return xh, xwin, (off_h, off_w)
 
 
 def _add(acc, part):
@@ -176,7 +200,7 @@ def _local_conv(xl, wl, mesh, *, stride, plans, schedule):
     pb, ph, pw, pk, pc = mesh_grid(mesh, AXES)
     # halo (interior) / zero pad (global boundary) on the thin C sub-shard,
     # before any gather so boundary traffic is minimal
-    xl = _halo_and_window(xl, mesh, plans)
+    _, xl, _ = _halo_and_window(xl, mesh, plans)
     # per-step local contraction through the kernel dispatcher
     conv = functools.partial(kops.local_conv2d, stride=stride,
                              padding="VALID")
@@ -202,6 +226,175 @@ def _local_conv(xl, wl, mesh, *, stride, plans, schedule):
     if pc > 1:
         out = psum(out, mesh, "c", tag="conv_out")
     return out
+
+
+# --------------------------------------------------------------------------
+# Backward pass: the transposed communication schedule
+# --------------------------------------------------------------------------
+
+def _dx_local(gl, wg, *, stride):
+    """dIn of the local VALID conv: the transposed-kernel conv.  Stride 1
+    is a VALID conv of the edge-padded cotangent against the flipped,
+    O/I-swapped kernel and goes through the kernel dispatcher; a strided
+    conv dilates the cotangent (``conv_transpose2d``)."""
+    kh, kw = wg.shape[2], wg.shape[3]
+    if tuple(stride) == (1, 1):
+        gp = F.pad(gl, (kw - 1, kw - 1, kh - 1, kh - 1)).contiguous()
+        wt = wg.flip(2, 3).transpose(0, 1).contiguous()
+        return kops.local_conv2d(gp, wt, stride=(1, 1), padding="VALID")
+    return F.conv_transpose2d(gl.float(), wg.float(), stride=stride)
+
+
+def _dw_local(xg, gl, *, stride, ksize):
+    """dKer of the local VALID conv: In slides under the (stride-dilated)
+    cotangent, contracting over N.  Stride 1 is the N/C-transposed VALID
+    conv through the kernel dispatcher; strided needs a dilated kernel."""
+    if tuple(stride) == (1, 1):
+        out = kops.local_conv2d(xg.transpose(0, 1).contiguous(),
+                                gl.transpose(0, 1).contiguous(),
+                                stride=(1, 1), padding="VALID")
+        return out.transpose(0, 1).contiguous()
+    out = F.conv2d(xg.transpose(0, 1).float(), gl.transpose(0, 1).float(),
+                   dilation=stride)
+    return out.transpose(0, 1)[:, :, :ksize[0], :ksize[1]].contiguous()
+
+
+def _place(acc, part, start, dim):
+    acc.narrow(dim, start, part.shape[dim]).copy_(part)
+    return acc
+
+
+def _conv_bwd_ring2(xwin, wl, gl, mesh, *, pb, pk, stride, psp):
+    """Streaming backward of the two-ring schedule: dIn slabs are produced
+    on the fly and reduced around the k-ring, dKer chunks around the
+    b-ring; the spatial psum applies to the already-scattered chunk.
+    Returns ``(dxwin, dwl)`` in windowed/local layout."""
+    cx = xwin.shape[1]
+    cw = wl.shape[1]
+    ksize = wl.shape[2:]
+    ring2 = [(i, (i + 1) % 2) for i in range(2)]
+    aligned = axis_index(mesh, "k") == axis_index(mesh, "b")
+
+    # --- dIn: per-slab transposed-kernel conv ------------------------------
+    if pk == 1:
+        if pb == 1:
+            dxwin = _dx_local(gl, wl, stride=stride)
+        else:
+            # stream Ker chunks around the b-ring; each fills its c-rows
+            dxwin = ring_reduce(
+                wl, mesh, "b",
+                lambda acc, src, wchunk: _place(
+                    acc, _dx_local(gl, wchunk, stride=stride), src * cw, 1),
+                torch.zeros(xwin.shape, dtype=gl.dtype, device=gl.device))
+    elif pb == 1:
+        # Ker holds its full rows: produce each k-ring token's slab locally
+        dxwin = ring_scatter_reduce(
+            mesh, "k", lambda r, t: _dx_local(
+                gl, wl.narrow(1, r * cx, cx), stride=stride))
+    else:  # Pb == Pk == 2: one b-hop re-delivers the foreign Ker chunk
+        w_arr = ppermute(wl, mesh, "b", ring2, tag="ring2_redeliver")
+
+        def produce_dx(r, t):
+            first = w_arr if aligned else wl
+            other = wl if aligned else w_arr
+            return _dx_local(gl, first if t == 0 else other, stride=stride)
+
+        dxwin = ring_scatter_reduce(mesh, "k", produce_dx)
+
+    # --- dKer: per-chunk batch contraction -------------------------------
+    if pb == 1:
+        if pk == 1:
+            dwl = _dw_local(xwin, gl, stride=stride, ksize=ksize)
+        else:
+            # stream In slabs around the k-ring; each fills its c-rows
+            dwl = ring_reduce(
+                xwin, mesh, "k",
+                lambda acc, src, slab: _place(
+                    acc, _dw_local(slab, gl, stride=stride, ksize=ksize),
+                    src * cx, 1),
+                torch.zeros((wl.shape[0], cw) + tuple(ksize),
+                            dtype=gl.dtype, device=gl.device))
+    elif pk == 1:
+        dwl = ring_scatter_reduce(
+            mesh, "b", lambda r, t: _dw_local(
+                xwin.narrow(1, r * cw, cw), gl, stride=stride, ksize=ksize))
+    else:  # Pb == Pk == 2: one k-hop re-delivers the foreign In slab
+        x_arr = ppermute(xwin, mesh, "k", ring2, tag="ring2_redeliver")
+
+        def produce_dw(r, t):
+            first = x_arr if aligned else xwin
+            other = xwin if aligned else x_arr
+            return _dw_local(first if t == 0 else other, gl, stride=stride,
+                             ksize=ksize)
+
+        dwl = ring_scatter_reduce(mesh, "b", produce_dw)
+    if psp > 1:  # Ker was replicated over h/w: the transpose is a psum
+        dwl = psum(dwl, mesh, ("h", "w"), tag="dker_spatial")
+    return dxwin, dwl
+
+
+def _local_conv_bwd(xl, wl, gl, mesh, *, stride, plans, schedule):
+    """The transposed schedule, per rank: ``gl`` (the Out cotangent)
+    arrives complete on every c rank (transpose of the all-reduce); the
+    forward gathers are replayed (or re-streamed, for ``ring2``), dIn is
+    reduce-scattered over k and halo-accumulated, dKer is psum'd over the
+    spatial axes and reduce-scattered over b."""
+    pb, ph, pw, pk, pc = mesh_grid(mesh, AXES)
+    plan_h, plan_w = plans
+    # replay the forward operand reconstruction (rematerialized, not saved)
+    xh, xwin, (off_h, off_w) = _halo_and_window(xl, mesh, plans)
+    ksize = wl.shape[2:]
+    if schedule == "ring2":
+        dxwin, dwl = _conv_bwd_ring2(xwin, wl, gl, mesh, pb=pb, pk=pk,
+                                     stride=stride, psp=ph * pw)
+    else:
+        wg = gather_axis(wl, mesh, "b", dim=1, schedule=schedule) \
+            if pb > 1 else wl
+        xg = gather_axis(xwin, mesh, "k", dim=1, schedule=schedule) \
+            if pk > 1 else xwin
+        # --- dIn: transposed-kernel conv, k-gather -> k-scatter ----------
+        dxg = _dx_local(gl, wg, stride=stride)
+        dxwin = scatter_axis(dxg, mesh, "k", dim=1, schedule=schedule) \
+            if pk > 1 else dxg
+        # --- dKer: batch/spatial contraction, b-gather -> b-scatter ------
+        dwg = _dw_local(xg, gl, stride=stride, ksize=ksize)
+        if ph * pw > 1:  # Ker was replicated over h/w: transpose is a psum
+            dwg = psum(dwg, mesh, ("h", "w"), tag="dker_spatial")
+        dwl = scatter_axis(dwg, mesh, "b", dim=1, schedule=schedule) \
+            if pb > 1 else dwg
+    if plan_h.identity_slice and plan_w.identity_slice:
+        dxe = dxwin
+    else:  # transpose of the window slice: scatter back into the block
+        dxe = torch.zeros(xh.shape, dtype=dxwin.dtype, device=dxwin.device)
+        dst = dxe
+        if not plan_h.identity_slice:
+            dst = dst.narrow(2, off_h, plan_h.win)
+        if not plan_w.identity_slice:
+            dst = dst.narrow(3, off_w, plan_w.win)
+        dst.copy_(dxwin)
+    dxl = halo_accumulate_1d(dxe, mesh, "w", spatial_dim=3, lo=plan_w.lo_x,
+                             hi=plan_w.hi_x)
+    dxl = halo_accumulate_1d(dxl, mesh, "h", spatial_dim=2, lo=plan_h.lo_x,
+                             hi=plan_h.hi_x)
+    return dxl.to(xl.dtype), dwl.to(wl.dtype)
+
+
+class _Conv2dDistributed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xl, wl, mesh, stride, plans, schedule):
+        ctx.save_for_backward(xl, wl)
+        ctx.args = (mesh, stride, plans, schedule)
+        return _local_conv(xl.detach(), wl.detach(), mesh, stride=stride,
+                           plans=plans, schedule=schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        xl, wl = ctx.saved_tensors
+        mesh, stride, plans, schedule = ctx.args
+        dxl, dwl = _local_conv_bwd(xl, wl, g.contiguous(), mesh,
+                                   stride=stride, plans=plans,
+                                   schedule=schedule)
+        return dxl, dwl, None, None, None, None
 
 
 def conv_ring2_supported(grid) -> bool:
@@ -252,15 +445,18 @@ def conv_grid_divides(x_shape, w_shape, grid, *, stride=(1, 1),
 def conv2d_distributed(xl: torch.Tensor, wl: torch.Tensor,
                        mesh: DeviceMesh, *, schedule: str = "allgather",
                        stride: Union[int, Tuple[int, int]] = (1, 1),
-                       padding: Padding = "SAME") -> torch.Tensor:
+                       padding: Padding = "SAME",
+                       save_gathered: bool = False) -> torch.Tensor:
     """NCHW x OIHW convolution distributed over a 5-axis grid, per rank.
 
     ``xl`` / ``wl`` are this rank's :data:`IN_SPEC` / :data:`KER_SPEC`
     shards (``collectives.shard``); returns its :data:`OUT_SPEC` shard.
     Unsharded, the result matches ``F.conv2d`` with XLA's ``padding``
-    rules.  ``schedule="ring2"`` falls back to ``"ring"`` on grids
-    :func:`conv_ring2_supported` rejects."""
-    forward_only(xl, wl)
+    rules.  Differentiable: the backward rematerializes the forward
+    gathers (see the module docstring).  ``schedule="ring2"`` falls back
+    to ``"ring"`` on grids :func:`conv_ring2_supported` rejects."""
+    if save_gathered:
+        raise NotImplementedError(SAVE_GATHERED_LATER)
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}")
     if tuple(mesh.mesh_dim_names or ()) != AXES:
@@ -274,12 +470,16 @@ def conv2d_distributed(xl: torch.Tensor, wl: torch.Tensor,
     x_shape = (n * pb, cx * pc * pk, h * ph, w * pw)
     w_shape = (k * pk, cw * pc * pb, kh, kw)
     plans = _conv_plans(x_shape, w_shape, grid, tuple(stride), padding)
+    schedule = _conv_effective_schedule(schedule, grid)
+    if torch.is_grad_enabled() and (xl.requires_grad or wl.requires_grad):
+        return _Conv2dDistributed.apply(xl, wl, mesh, tuple(stride), plans,
+                                        schedule)
     return _local_conv(xl, wl, mesh, stride=tuple(stride), plans=plans,
-                       schedule=_conv_effective_schedule(schedule, grid))
+                       schedule=schedule)
 
 
 # --------------------------------------------------------------------------
-# Analytic per-device communication and memory accounting (forward)
+# Analytic per-device communication and memory accounting (fwd and bwd)
 # --------------------------------------------------------------------------
 
 def conv_comm_elems(x_shape, w_shape, grid, *, stride=(1, 1),
@@ -307,6 +507,44 @@ def conv_comm_elems(x_shape, w_shape, grid, *, stride=(1, 1),
     return {"gather_in": gather_in, "gather_ker": gather_ker,
             "reduce_out": reduce_out, "halo": halo,
             "total": gather_in + gather_ker + reduce_out + halo}
+
+
+def conv_train_comm_elems(x_shape, w_shape, grid, *, stride=(1, 1),
+                          padding: Padding = "SAME",
+                          schedule: str = "allgather",
+                          save_gathered: bool = False) -> dict:
+    """Forward + backward analytic per-device wire volume (elements).
+
+    The backward replays the forward halo and both gathers, then
+    transposes them: dIn reduce-scatters over k (the In gather's volume)
+    and halo-accumulates (the halo's), dKer all-reduces over the spatial
+    axes and reduce-scatters over b (the Ker gather's).  The c-axis
+    all-reduce has no backward counterpart.  ``save_gathered=True``
+    models the residual-saving VJP: no replay terms, one extra
+    ``reduce_out`` psum.  ``ring2`` (on supported grids) scatters dKer
+    over b *before* the spatial psum, shrinking that term by ``1/Pb``."""
+    if isinstance(stride, int):
+        stride = (stride, stride)
+    K, C, kh, kw = w_shape[0], w_shape[1], w_shape[2], w_shape[3]
+    pb, ph, pw, pk, pc = grid
+    schedule = _conv_effective_schedule(schedule, grid)
+    fwd = conv_comm_elems(x_shape, w_shape, grid, stride=stride,
+                          padding=padding)
+    psp = ph * pw
+    ker_rows = C / pc if schedule != "ring2" else C / (pc * pb)
+    psum_ker = (2 * (K / pk) * ker_rows * kh * kw * (psp - 1) / psp
+                if psp > 1 else 0.0)
+    replay = 0.0 if save_gathered else 1.0
+    bwd = {"halo_replay": replay * fwd["halo"],
+           "gather_in_replay": replay * fwd["gather_in"],
+           "gather_ker_replay": replay * fwd["gather_ker"],
+           "rs_in": fwd["gather_in"],
+           "rs_ker": fwd["gather_ker"],
+           "psum_ker_spatial": psum_ker,
+           "psum_out_bwd": fwd["reduce_out"] if save_gathered else 0.0,
+           "halo_acc": fwd["halo"]}
+    bwd["total"] = sum(v for k, v in bwd.items() if k != "total")
+    return {"fwd": fwd, "bwd": bwd, "total": fwd["total"] + bwd["total"]}
 
 
 def _conv_mem_parts(x_shape, w_shape, grid, stride, padding) -> dict:
@@ -355,3 +593,41 @@ def conv_mem_elems(x_shape, w_shape, grid, *, stride=(1, 1),
             "out": p["out"] * (2.0 if pc > 1 else 1.0)}
     comp["peak"] = sum(comp.values())
     return comp
+
+
+def conv_train_mem_elems(x_shape, w_shape, grid, *, stride=(1, 1),
+                         padding: Padding = "SAME",
+                         schedule: str = "allgather",
+                         save_gathered: bool = False) -> dict:
+    """Peak live memory (elements) of a forward + backward pass: the
+    rematerializing backward replays the forward reconstruction and also
+    holds the cotangent, the gathered gradient buffers (``Pk`` dIn
+    windows / ``Pb`` dKer chunks; O(1) token buffers for ``ring2``) and
+    the operand gradients.  ``save_gathered=True`` adds the saved
+    residuals to both phases."""
+    if isinstance(stride, int):
+        stride = (stride, stride)
+    pb, ph, pw, pk, pc = grid
+    schedule = _conv_effective_schedule(schedule, grid)
+    fwd = conv_mem_elems(x_shape, w_shape, grid, stride=stride,
+                         padding=padding, schedule=schedule)
+    p = _conv_mem_parts(x_shape, w_shape, grid, stride, padding)
+    xwin, wl = p["xwin"], p["wl"]
+    if schedule == "ring2":
+        din_t = stream_elems(pk, xwin)   # dIn token ring
+        dker_t = stream_elems(pb, wl)    # dKer token ring
+    else:
+        din_t = pk * xwin if pk > 1 else 0.0    # materialized dxg
+        dker_t = pb * wl if pb > 1 else 0.0     # materialized dwg
+    resid = (pk * xwin + pb * wl) if save_gathered else 0.0
+    bwd = {"args": fwd["args"], "halo": fwd["halo"], "cotangent": p["out"],
+           "in_transient": 0.0 if save_gathered else fwd["in_transient"],
+           "ker_transient": 0.0 if save_gathered else fwd["ker_transient"],
+           # token/gathered buffers + unwindow block + dxl / + dwl
+           "din": din_t + p["xh"] + p["xl"],
+           "dker": dker_t + wl,
+           "residuals": resid}
+    bwd["peak"] = sum(v for k, v in bwd.items() if k != "peak")
+    fwd_peak = fwd["peak"] + resid
+    return {"fwd": fwd, "bwd": bwd,
+            "peak": max(fwd_peak, bwd["peak"])}

@@ -1,5 +1,5 @@
 """Halo exchange for spatially partitioned convolutions (paper Sec. 3.2)
--- the forward of ``repro/dist/halo.py``.
+-- the port of ``repro/dist/halo.py``.
 
 When the h/w image dimensions are split over ranks, each rank needs ``lo``
 boundary rows from its predecessor and ``hi`` rows from its successor
@@ -12,6 +12,12 @@ Shards smaller than the halo are handled by multi-hop pushes: hop ``j``
 fetches the block ``j`` ranks away, and the strips are concatenated to the
 requested width.  The permutations are partial (rank 0 has no
 predecessor); only the ranks named in a permutation send or receive.
+
+The exchange is linear; its transpose is :func:`halo_accumulate_1d`,
+which pushes a cotangent's halo strips back to the shards that own those
+rows and sums them into their boundaries (strips past the global
+boundary are dropped, the transpose of the zero fill).
+:func:`halo_exchange_1d` is differentiable through it.
 """
 
 from __future__ import annotations
@@ -19,7 +25,6 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.device import forward_only
 from repro_torch.dist.collectives import axis_size, ppermute
 
 
@@ -54,17 +59,7 @@ def _strip_from_next(x, mesh, axis: str, dim: int, hi: int, n: int):
     return torch.cat(blocks, dim=dim)
 
 
-def halo_exchange_1d(x: torch.Tensor, mesh: DeviceMesh, axis: str, *,
-                     spatial_dim: int, lo: int, hi: int) -> torch.Tensor:
-    """Extend the local shard by ``lo``/``hi`` halo rows along
-    ``spatial_dim``, filled from the neighbouring shards on mesh axis
-    ``axis`` (zeros beyond the global array boundary).  Returns a tensor
-    whose ``spatial_dim`` extent is ``x.shape[spatial_dim] + lo + hi``."""
-    forward_only(x)
-    if lo < 0 or hi < 0:
-        raise ValueError(f"halo widths must be >= 0, got lo={lo} hi={hi}")
-    if lo == 0 and hi == 0:
-        return x
+def _exchange(x, mesh, axis: str, spatial_dim: int, lo: int, hi: int):
     n = axis_size(mesh, axis)
     parts = []
     if lo > 0:
@@ -73,3 +68,75 @@ def halo_exchange_1d(x: torch.Tensor, mesh: DeviceMesh, axis: str, *,
     if hi > 0:
         parts.append(_strip_from_next(x, mesh, axis, spatial_dim, hi, n))
     return torch.cat(parts, dim=spatial_dim)
+
+
+def halo_accumulate_1d(y: torch.Tensor, mesh: DeviceMesh, axis: str, *,
+                       spatial_dim: int, lo: int, hi: int) -> torch.Tensor:
+    """Transpose of :func:`halo_exchange_1d`: fold the ``lo``/``hi`` halo
+    strips of a cotangent back into the shards that own those rows.
+
+    ``y`` has extent ``size + lo + hi`` along ``spatial_dim``; the result
+    has extent ``size``: the core plus, summed into its boundary rows, the
+    halo strips pushed back along the inverted neighbour permutations
+    (multi-hop blocks retrace their hops)."""
+    if lo < 0 or hi < 0:
+        raise ValueError(f"halo widths must be >= 0, got lo={lo} hi={hi}")
+    if lo == 0 and hi == 0:
+        return y
+    size = y.shape[spatial_dim] - lo - hi
+    if size <= 0:
+        raise ValueError(f"cotangent extent {y.shape[spatial_dim]} too "
+                         f"small for halo lo={lo} hi={hi}")
+    n = axis_size(mesh, axis)
+    dx = y.narrow(spatial_dim, lo, size).clone()
+    if lo > 0:
+        off = 0
+        for hop in range(-(-lo // size), 0, -1):  # farthest first
+            take = min(size, lo - (hop - 1) * size)
+            blk = y.narrow(spatial_dim, off, take)
+            off += take
+            perm = [(i + hop, i) for i in range(n - hop)]
+            if perm:
+                dx.narrow(spatial_dim, size - take, take).add_(
+                    ppermute(blk, mesh, axis, perm, tag="halo_acc"))
+    if hi > 0:
+        off = lo + size
+        for hop in range(1, -(-hi // size) + 1):  # nearest first
+            take = min(size, hi - (hop - 1) * size)
+            blk = y.narrow(spatial_dim, off, take)
+            off += take
+            perm = [(i, i + hop) for i in range(n - hop)]
+            if perm:
+                dx.narrow(spatial_dim, 0, take).add_(
+                    ppermute(blk, mesh, axis, perm, tag="halo_acc"))
+    return dx
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, spatial_dim, lo, hi):
+        ctx.args = (mesh, axis, spatial_dim, lo, hi)
+        return _exchange(x, mesh, axis, spatial_dim, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, spatial_dim, lo, hi = ctx.args
+        return (halo_accumulate_1d(g.contiguous(), mesh, axis,
+                                   spatial_dim=spatial_dim, lo=lo, hi=hi),
+                None, None, None, None, None)
+
+
+def halo_exchange_1d(x: torch.Tensor, mesh: DeviceMesh, axis: str, *,
+                     spatial_dim: int, lo: int, hi: int) -> torch.Tensor:
+    """Extend the local shard by ``lo``/``hi`` halo rows along
+    ``spatial_dim``, filled from the neighbouring shards on mesh axis
+    ``axis`` (zeros beyond the global array boundary).  Returns a tensor
+    whose ``spatial_dim`` extent is ``x.shape[spatial_dim] + lo + hi``.
+    Differentiable: the backward is :func:`halo_accumulate_1d`."""
+    if lo < 0 or hi < 0:
+        raise ValueError(f"halo widths must be >= 0, got lo={lo} hi={hi}")
+    if lo == 0 and hi == 0:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _HaloExchange.apply(x, mesh, axis, spatial_dim, lo, hi)
+    return _exchange(x, mesh, axis, spatial_dim, lo, hi)

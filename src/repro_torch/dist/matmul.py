@@ -1,5 +1,5 @@
 """Distributed matrix multiplication on a 3-axis processor grid (paper
-Sec. 2.2: the 2D-SUMMA / 2.5D / 3D family) -- the forward of
+Sec. 2.2: the 2D-SUMMA / 2.5D / 3D family) -- the port of
 ``repro/dist/matmul.py``.
 
 Grid ``(Pm, Pn, Pc)`` over mesh axes ``("m", "n", "c")``:
@@ -17,7 +17,9 @@ rotates both (:func:`collectives.ring_zip`) on the grids
 :func:`matmul_ring2_supported` accepts and falls back to ``"ring"``
 elsewhere.  :func:`matmul_distributed` is per-rank code on shards, like
 ``dist.conv2d.conv2d_distributed``.  Per-step products go through
-``kernels.ops.local_matmul``.
+``kernels.ops.local_matmul``.  Differentiable like the conv: the backward
+replays the gathers (or re-streams, for ``ring2``) and reduce-scatters
+each operand gradient; ``save_gathered=True`` is a later slice.
 """
 
 from __future__ import annotations
@@ -27,12 +29,13 @@ import functools
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.device import forward_only
 from repro_torch.dist.collectives import (SCHEDULES, axis_index, gather_axis,
                                           make_mesh, mesh_grid, mesh_view,
-                                          psum, ring_reduce, ring_zip,
-                                          stream_elems)
+                                          ppermute, psum, ring_reduce,
+                                          ring_scatter_reduce, ring_zip,
+                                          scatter_axis, stream_elems)
 from repro_torch.dist.conv2d import AXES as CONV_AXES
+from repro_torch.dist.conv2d import SAVE_GATHERED_LATER
 from repro_torch.kernels import ops as kops
 
 AXES = ("m", "n", "c")
@@ -161,14 +164,122 @@ def _local_matmul(xl, wl, mesh, *, schedule):
     return out
 
 
+def _place(acc, part, start, dim):
+    acc.narrow(dim, start, part.shape[dim]).copy_(part)
+    return acc
+
+
+def _matmul_bwd_ring2(xl, wl, gl, mesh, *, pm, pn):
+    """Streaming backward of the two-ring schedule: dIn slabs are produced
+    on the fly and reduced around the n-ring, dKer chunks around the
+    m-ring -- no gathered operand or gradient is materialized."""
+    cx = xl.shape[1]
+    cw = wl.shape[0]
+    mm = kops.local_matmul
+    ring2 = [(i, (i + 1) % 2) for i in range(2)]
+    aligned = axis_index(mesh, "n") == axis_index(mesh, "m")
+
+    def tr(t):
+        return t.t().contiguous()
+
+    # --- dIn = g @ Ker^T, slab-wise --------------------------------------
+    if pn == 1:
+        if pm == 1:
+            dxl = mm(gl, tr(wl))
+        else:
+            dxl = ring_reduce(
+                wl, mesh, "m",
+                lambda acc, src, wchunk: _place(acc, mm(gl, tr(wchunk)),
+                                                src * cw, 1),
+                torch.zeros(xl.shape, dtype=gl.dtype, device=gl.device))
+    elif pm == 1:
+        dxl = ring_scatter_reduce(
+            mesh, "n", lambda r, t: mm(gl, tr(wl.narrow(0, r * cx, cx))))
+    else:  # Pm == Pn == 2: one m-hop re-delivers the foreign Ker chunk
+        w_arr = ppermute(wl, mesh, "m", ring2, tag="ring2_redeliver")
+
+        def produce_dx(r, t):
+            first = w_arr if aligned else wl
+            other = wl if aligned else w_arr
+            return mm(gl, tr(first if t == 0 else other))
+
+        dxl = ring_scatter_reduce(mesh, "n", produce_dx)
+
+    # --- dKer = In^T @ g, chunk-wise -------------------------------------
+    if pm == 1:
+        if pn == 1:
+            dwl = mm(tr(xl), gl)
+        else:
+            dwl = ring_reduce(
+                xl, mesh, "n",
+                lambda acc, src, slab: _place(acc, mm(tr(slab), gl),
+                                              src * cx, 0),
+                torch.zeros(wl.shape, dtype=gl.dtype, device=gl.device))
+    elif pn == 1:
+        dwl = ring_scatter_reduce(
+            mesh, "m", lambda r, t: mm(tr(xl.narrow(1, r * cw, cw)), gl))
+    else:  # Pm == Pn == 2: one n-hop re-delivers the foreign In slab
+        x_arr = ppermute(xl, mesh, "n", ring2, tag="ring2_redeliver")
+
+        def produce_dw(r, t):
+            first = x_arr if aligned else xl
+            other = xl if aligned else x_arr
+            return mm(tr(first if t == 0 else other), gl)
+
+        dwl = ring_scatter_reduce(mesh, "m", produce_dw)
+    return dxl, dwl
+
+
+def _local_matmul_bwd(xl, wl, gl, mesh, *, schedule):
+    """Transposed schedule: replay the gathers (or re-stream, for ring2),
+    contract against the Out cotangent (complete on every c rank),
+    reduce-scatter each operand gradient."""
+    pm, pn, pc = mesh_grid(mesh, AXES)
+    if schedule == "ring2":
+        dxl, dwl = _matmul_bwd_ring2(xl, wl, gl, mesh, pm=pm, pn=pn)
+        return dxl.to(xl.dtype), dwl.to(wl.dtype)
+    mm = kops.local_matmul
+    xg = gather_axis(xl, mesh, "n", dim=1, schedule=schedule) \
+        if pn > 1 else xl
+    wg = gather_axis(wl, mesh, "m", dim=0, schedule=schedule) \
+        if pm > 1 else wl
+    dxg = mm(gl, wg.t().contiguous())              # [M/pm, C/pc]
+    dwg = mm(xg.t().contiguous(), gl)              # [C/pc, N/pn]
+    dxl = scatter_axis(dxg, mesh, "n", dim=1, schedule=schedule) \
+        if pn > 1 else dxg
+    dwl = scatter_axis(dwg, mesh, "m", dim=0, schedule=schedule) \
+        if pm > 1 else dwg
+    return dxl.to(xl.dtype), dwl.to(wl.dtype)
+
+
+class _MatmulDistributed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xl, wl, mesh, schedule):
+        ctx.save_for_backward(xl, wl)
+        ctx.args = (mesh, schedule)
+        return _local_matmul(xl.detach(), wl.detach(), mesh,
+                             schedule=schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        xl, wl = ctx.saved_tensors
+        mesh, schedule = ctx.args
+        dxl, dwl = _local_matmul_bwd(xl, wl, g.contiguous(), mesh,
+                                     schedule=schedule)
+        return dxl, dwl, None, None
+
+
 def matmul_distributed(xl: torch.Tensor, wl: torch.Tensor,
                        mesh: DeviceMesh, *,
-                       schedule: str = "allgather") -> torch.Tensor:
+                       schedule: str = "allgather",
+                       save_gathered: bool = False) -> torch.Tensor:
     """``x @ w`` on the 3-axis grid, per rank: ``xl`` / ``wl`` are this
     rank's :data:`X_SPEC` / :data:`W_SPEC` shards; returns its
-    :data:`OUT_SPEC` shard.  ``schedule="ring2"`` falls back to
-    ``"ring"`` on grids :func:`matmul_ring2_supported` rejects."""
-    forward_only(xl, wl)
+    :data:`OUT_SPEC` shard.  Differentiable (the backward rematerializes
+    the gathers).  ``schedule="ring2"`` falls back to ``"ring"`` on grids
+    :func:`matmul_ring2_supported` rejects."""
+    if save_gathered:
+        raise NotImplementedError(SAVE_GATHERED_LATER)
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}")
     if tuple(mesh.mesh_dim_names or ()) != AXES:
@@ -180,8 +291,10 @@ def matmul_distributed(xl: torch.Tensor, wl: torch.Tensor,
         raise ValueError(f"contraction mismatch: shards {tuple(xl.shape)} "
                          f"@ {tuple(wl.shape)} on grid {grid}")
     _check_matmul_shapes(M, C, N, grid)
-    return _local_matmul(xl, wl, mesh,
-                         schedule=_matmul_effective_schedule(schedule, grid))
+    schedule = _matmul_effective_schedule(schedule, grid)
+    if torch.is_grad_enabled() and (xl.requires_grad or wl.requires_grad):
+        return _MatmulDistributed.apply(xl, wl, mesh, schedule)
+    return _local_matmul(xl, wl, mesh, schedule=schedule)
 
 
 def matmul_comm_elems(M: int, C: int, N: int, grid) -> dict:
@@ -196,6 +309,24 @@ def matmul_comm_elems(M: int, C: int, N: int, grid) -> dict:
     return {"gather_in": gather_in, "gather_ker": gather_ker,
             "reduce_out": reduce_out,
             "total": gather_in + gather_ker + reduce_out}
+
+
+def matmul_train_comm_elems(M: int, C: int, N: int, grid, *,
+                            save_gathered: bool = False) -> dict:
+    """Forward + backward analytic per-device wire volume (elements): the
+    backward replays both gathers and transposes each into an
+    equal-volume reduce-scatter; the c-axis all-reduce transposes to
+    nothing.  ``save_gathered=True`` drops the replay terms and pays the
+    forward ``reduce_out`` once more."""
+    fwd = matmul_comm_elems(M, C, N, grid)
+    replay = 0.0 if save_gathered else 1.0
+    bwd = {"gather_in_replay": replay * fwd["gather_in"],
+           "gather_ker_replay": replay * fwd["gather_ker"],
+           "rs_in": fwd["gather_in"],
+           "rs_ker": fwd["gather_ker"],
+           "psum_out_bwd": fwd["reduce_out"] if save_gathered else 0.0}
+    bwd["total"] = sum(v for k, v in bwd.items() if k != "total")
+    return {"fwd": fwd, "bwd": bwd, "total": fwd["total"] + bwd["total"]}
 
 
 def _matmul_mem_parts(M: int, C: int, N: int, grid) -> dict:
@@ -227,3 +358,30 @@ def matmul_mem_elems(M: int, C: int, N: int, grid, *,
             "out": out * (2.0 if pc > 1 else 1.0)}
     comp["peak"] = sum(comp.values())
     return comp
+
+
+def matmul_train_mem_elems(M: int, C: int, N: int, grid, *,
+                           schedule: str = "allgather",
+                           save_gathered: bool = False) -> dict:
+    """Peak live memory (elements) of a forward + backward pass (see
+    ``dist.conv2d.conv_train_mem_elems`` for the model)."""
+    pm, pn, pc = grid
+    schedule = _matmul_effective_schedule(schedule, grid)
+    fwd = matmul_mem_elems(M, C, N, grid, schedule=schedule)
+    p = _matmul_mem_parts(M, C, N, grid)
+    xl, wl, g = p["xl"], p["wl"], p["out"]
+    if schedule == "ring2":
+        din_t = stream_elems(pn, xl)
+        dker_t = stream_elems(pm, wl)
+    else:
+        din_t = pn * xl if pn > 1 else 0.0
+        dker_t = pm * wl if pm > 1 else 0.0
+    resid = (pn * xl + pm * wl) if save_gathered else 0.0
+    bwd = {"args": fwd["args"], "cotangent": g,
+           "in_transient": 0.0 if save_gathered else fwd["in_transient"],
+           "ker_transient": 0.0 if save_gathered else fwd["ker_transient"],
+           "din": din_t + xl, "dker": dker_t + wl,
+           "residuals": resid}
+    bwd["peak"] = sum(v for k, v in bwd.items() if k != "peak")
+    return {"fwd": fwd, "bwd": bwd,
+            "peak": max(fwd["peak"] + resid, bwd["peak"])}

@@ -5,8 +5,11 @@ sources at once, one ``nvcc`` process each) and linked into one shared
 library with a plain C interface, which ``ctypes`` loads.  The library
 lands in ``build/`` beside this file (listed in ``.gitignore``) under a
 name keyed by the hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is not.  Each object's ``ptxas`` report
-(registers, shared memory, spills) is kept next to it as ``<name>.log``.
+rebuilt and an unchanged one is not.  A kernel that cannot be built,
+loaded or launched raises :class:`KernelError`, which the autotuner lets
+through: a broken hand-written kernel must never lose a timing race
+quietly.  Each object's ``ptxas`` report (registers, shared memory,
+spills) is kept next to it as ``<name>.log``.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -32,9 +35,13 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; each returns cudaGetLastError()
 SIGNATURES = {
-    "repro_matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_gemm_f32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "repro_conv2d_f32": [_P, _P, _P] + [_I] * 11 + [_P],
 }
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
 
 
 def _nvcc() -> str:
@@ -43,7 +50,7 @@ def _nvcc() -> str:
                  else None, shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def library_path() -> Path:
@@ -77,13 +84,13 @@ def build() -> Path:
         if proc.returncode:
             failed.append(f"{src.name}:\n{log}")
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
         [nvcc, "-shared", NVCC_FLAGS[0], *(str(o) for _, o, _ in jobs),
          "-o", str(tmp)], capture_output=True, text=True)
     if link.returncode:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        raise KernelError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, so)
     for _, obj, _ in jobs:
         obj.unlink()
@@ -94,7 +101,7 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The kernels' library, built if needed; raises without a card."""
     if not torch.cuda.is_available():
-        raise RuntimeError("the CUDA kernels need a CUDA device")
+        raise KernelError("the CUDA kernels need a CUDA device")
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -109,7 +116,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+        raise KernelError(f"{what} kernel launch failed: CUDA error "
                            f"{err} ({msg})")
 
 

@@ -30,6 +30,15 @@
 // values a row of the micro-tile needs are loaded once per (c, r).  It
 // stays in IEEE f32 (no TF32 tensor cores).  Implicit GEMM on wgmma, TMA
 // staging and multi-stage pipelining are later work.
+//
+// Kernels as large as the image.  The training backward's dKer
+// contraction is a VALID conv whose "kernel" is the output cotangent
+// (56x56 and down on the CNN's path), so kh, kw are not small.  The
+// run-time-kernel instantiation (KS == 0) therefore stages the kernel
+// taps in chunks of at most kTap x kTap (rows x columns) per C step,
+// with the input rows and columns that chunk reads: shared memory is
+// bounded (77 KB) whatever kh and kw are.  At the dKer shapes only 3x3 of
+// a tile's 8x16 output pixels are real, so the kernel is slow there.
 
 #include <cuda_runtime.h>
 
@@ -42,21 +51,25 @@ constexpr int kBC = 8;    // input channels staged per C step
 constexpr int kPX = 4;    // adjacent output pixels per thread
 constexpr int kKX = 4;    // output channels per thread
 constexpr int kThreads = (kTH * kTW / kPX) * (kBK / kKX);  // 256
+constexpr int kTap = 8;   // kernel taps per chunk and dim (KS == 0)
 
-// KS > 0: a KS x KS kernel known at compile time; KS == 0: kh, kw at run time.
+// KS > 0: a KS x KS kernel known at compile time, staged whole per C
+// step; KS == 0: kh, kw at run time, staged in chunks of tr x ts taps.
 template <int KS>
 __global__ void __launch_bounds__(kThreads)
 conv2d_direct(const float* __restrict__ x, const float* __restrict__ w,
               float* __restrict__ out, int C, int H, int W, int K,
               int kh_rt, int kw_rt, int Ho, int Wo, int pad_h, int pad_w,
-              int tiles_w) {
+              int tiles_w, int tr_rt, int ts_rt) {
   const int kh = KS > 0 ? KS : kh_rt;
   const int kw = KS > 0 ? KS : kw_rt;
-  const int tih = kTH + kh - 1;
-  const int tiw = kTW + kw - 1;
+  const int tr = KS > 0 ? KS : tr_rt;  // tap rows per chunk
+  const int ts = KS > 0 ? KS : ts_rt;  // tap columns per chunk
+  const int tih = kTH + tr - 1;
+  const int tiw = kTW + ts - 1;
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [kBC][kh][kw][kBK]
-  float* xs = ws + kBC * kh * kw * kBK;         // [kBC][tih][tiw]
+  float* ws = reinterpret_cast<float*>(smem4);  // [kBC][tr][ts][kBK]
+  float* xs = ws + kBC * tr * ts * kBK;         // [kBC][tih][tiw]
 
   const int n = blockIdx.z;
   const int k0 = blockIdx.y * kBK;
@@ -75,51 +88,65 @@ conv2d_direct(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < kKX; ++j) acc[i][j] = 0.f;
 
   const float* xn = x + (size_t)n * C * H * W;
-  const int khw = kh * kw;
+  const int trs = tr * ts;
   for (int c0 = 0; c0 < C; c0 += kBC) {
-    // kernel slice: global reads run along (c, r, s) of one k, shared
-    // memory holds it k-minor so a thread reads its 4 channels as a float4
-    for (int i = tid; i < kBK * kBC * khw; i += kThreads) {
-      const int rs = i % khw;
-      const int cc = (i / khw) % kBC;
-      const int kk = i / (khw * kBC);
-      const int gk = k0 + kk, gc = c0 + cc;
-      ws[(cc * khw + rs) * kBK + kk] =
-          (gk < K && gc < C) ? w[((size_t)gk * C + gc) * khw + rs] : 0.f;
-    }
-    // input tile plus halo, zero past the image / window / C edge
-    for (int i = tid; i < kBC * tih * tiw; i += kThreads) {
-      const int xx = i % tiw;
-      const int yy = (i / tiw) % tih;
-      const int cc = i / (tiw * tih);
-      const int gy = oy0 + yy - pad_h, gx = ox0 + xx - pad_w, gc = c0 + cc;
-      xs[i] = (gc < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-                  ? xn[((size_t)gc * H + gy) * W + gx]
+    for (int r0 = 0; r0 < kh; r0 += tr) {
+      for (int s0 = 0; s0 < kw; s0 += ts) {
+        const int nr = KS > 0 ? KS : min(tr, kh - r0);
+        const int ns = KS > 0 ? KS : min(ts, kw - s0);
+        // kernel taps of this chunk: global reads run along (c, r, s) of
+        // one k, shared memory holds them k-minor so a thread reads its 4
+        // channels as a float4; zero past the chunk, C and K
+        for (int i = tid; i < kBK * kBC * trs; i += kThreads) {
+          const int ss = i % ts;
+          const int rr = (i / ts) % tr;
+          const int cc = (i / trs) % kBC;
+          const int kk = i / (trs * kBC);
+          const int gk = k0 + kk, gc = c0 + cc;
+          ws[((cc * tr + rr) * ts + ss) * kBK + kk] =
+              (gk < K && gc < C && rr < nr && ss < ns)
+                  ? w[(((size_t)gk * C + gc) * kh + r0 + rr) * kw + s0 + ss]
                   : 0.f;
-    }
-    __syncthreads();
-    for (int cc = 0; cc < kBC; ++cc) {
-      // kh, kw are compile-time constants when KS > 0: these loops unroll
-      // and the overlapping xrow loads across s are loaded once
+        }
+        // the input rows and columns these taps read, zero past the
+        // image / window / C edge
+        for (int i = tid; i < kBC * tih * tiw; i += kThreads) {
+          const int xx = i % tiw;
+          const int yy = (i / tiw) % tih;
+          const int cc = i / (tiw * tih);
+          const int gy = oy0 + r0 + yy - pad_h;
+          const int gx = ox0 + s0 + xx - pad_w;
+          const int gc = c0 + cc;
+          xs[i] = (gc < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
+                      ? xn[((size_t)gc * H + gy) * W + gx]
+                      : 0.f;
+        }
+        __syncthreads();
+        for (int cc = 0; cc < kBC; ++cc) {
+          // nr, ns are compile-time constants when KS > 0: these loops
+          // unroll and the overlapping xrow loads across s are loaded once
 #pragma unroll
-      for (int r = 0; r < kh; ++r) {
-        const float* xrow = xs + (cc * tih + py + r) * tiw + px0;
-        const float* wrow = ws + (cc * khw + r * kw) * kBK + kg * kKX;
+          for (int r = 0; r < nr; ++r) {
+            const float* xrow = xs + (cc * tih + py + r) * tiw + px0;
+            const float* wrow = ws + ((cc * tr + r) * ts) * kBK + kg * kKX;
 #pragma unroll
-        for (int s = 0; s < kw; ++s) {
-          const float4 wv = *reinterpret_cast<const float4*>(wrow + s * kBK);
+            for (int s = 0; s < ns; ++s) {
+              const float4 wv =
+                  *reinterpret_cast<const float4*>(wrow + s * kBK);
 #pragma unroll
-          for (int i = 0; i < kPX; ++i) {
-            const float a = xrow[s + i];
-            acc[i][0] = fmaf(a, wv.x, acc[i][0]);
-            acc[i][1] = fmaf(a, wv.y, acc[i][1]);
-            acc[i][2] = fmaf(a, wv.z, acc[i][2]);
-            acc[i][3] = fmaf(a, wv.w, acc[i][3]);
+              for (int i = 0; i < kPX; ++i) {
+                const float a = xrow[s + i];
+                acc[i][0] = fmaf(a, wv.x, acc[i][0]);
+                acc[i][1] = fmaf(a, wv.y, acc[i][1]);
+                acc[i][2] = fmaf(a, wv.z, acc[i][2]);
+                acc[i][3] = fmaf(a, wv.w, acc[i][3]);
+              }
+            }
           }
         }
+        __syncthreads();
       }
     }
-    __syncthreads();
   }
 
   const int oy = oy0 + py;
@@ -141,8 +168,10 @@ template <int KS>
 int launch(const float* x, const float* w, float* out, int n, int c, int h,
            int wd, int k, int kh, int kw, int ho, int wo, int pad_h,
            int pad_w, cudaStream_t stream) {
+  const int tr = KS > 0 ? KS : (kh < kTap ? kh : kTap);
+  const int ts = KS > 0 ? KS : (kw < kTap ? kw : kTap);
   const size_t smem = sizeof(float) *
-      ((size_t)kBC * kh * kw * kBK + (size_t)kBC * (kTH + kh - 1) * (kTW + kw - 1));
+      ((size_t)kBC * tr * ts * kBK + (size_t)kBC * (kTH + tr - 1) * (kTW + ts - 1));
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -154,7 +183,7 @@ int launch(const float* x, const float* w, float* out, int n, int c, int h,
   const dim3 grid(tiles_w * tiles_h, (k + kBK - 1) / kBK, n);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   conv2d_direct<KS><<<grid, kThreads, smem, stream>>>(
-      x, w, out, c, h, wd, k, kh, kw, ho, wo, pad_h, pad_w, tiles_w);
+      x, w, out, c, h, wd, k, kh, kw, ho, wo, pad_h, pad_w, tiles_w, tr, ts);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Tiled f32 matmul -- the port of ``repro/kernels/matmul.py``.
 
 :func:`matmul` is the wrapper of the hand-written CUDA kernel in
-``csrc/matmul.cu`` (which replaces the Pallas ``matmul_pallas``): on a
+``csrc/gemm.cu`` at one batch entry (which replaces the Pallas
+``matmul_pallas``; the same kernel is Winograd's tile GEMM): on a
 CUDA tensor it launches the kernel on PyTorch's current stream, on a CPU
 tensor it runs :func:`matmul_plain`, the kernel's plain PyTorch version.
 There is no fallback between the two.
@@ -13,6 +14,42 @@ import torch
 
 from repro_torch.device import forward_only
 from repro_torch.kernels import _build
+
+# a reduction this long over this few output tiles is split (see
+# csrc/gemm.cu): aim at two blocks per SM of the H100's 132
+_SPLIT_MIN_BLOCKS = 264
+_SPLIT_MIN_CHUNK = 512
+
+
+def split_count(t: int, m: int, n: int, k: int) -> int:
+    """How many chunks the GEMM kernels split a ``[t, m, k] @ [t, k, n]``
+    reduction into: 1 unless the 64x64 output tiles are too few to fill
+    the card and K is long."""
+    blocks = t * -(-m // 64) * -(-n // 64)
+    if blocks >= _SPLIT_MIN_BLOCKS or k < 2 * _SPLIT_MIN_CHUNK:
+        return 1
+    return max(1, min(-(-_SPLIT_MIN_BLOCKS // blocks),
+                      k // _SPLIT_MIN_CHUNK))
+
+
+def launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``repro_gemm_f32`` on checked CUDA operands, ``[M,K] @
+    [K,N]`` as one batch entry or ``[T,M,K] @ [T,K,N]``, with
+    split-reduction scratch where :func:`split_count` asks for it."""
+    lib = _build.load()
+    t = a.shape[0] if a.dim() == 3 else 1
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    splits = split_count(t, m, n, k)
+    shape = a.shape[:-2] + (m, n)
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    scratch = (torch.empty((splits,) + shape, dtype=a.dtype, device=a.device)
+               if splits > 1 else None)
+    _build.check(lib, lib.repro_gemm_f32(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        t, m, n, k, splits, _build.stream_handle(a)), "gemm")
+    return out
 
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -39,12 +76,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         f"@ {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the CUDA matmul takes contiguous operands")
-    lib = _build.load()
-    (m, k), n = x.shape, w.shape[1]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _build.check(lib, lib.repro_matmul_f32(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-        _build.stream_handle(x)), "matmul")
+    out = launch_gemm(x, w)
     matmul.launches += 1
     return out
 

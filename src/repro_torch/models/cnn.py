@@ -1,4 +1,4 @@
-"""CNN image model -- the port of ``repro/models/cnn.py``, forward only.
+"""CNN image model -- the port of ``repro/models/cnn.py``.
 
 A ResNet-style stack of 3x3 SAME convs with bias, relu and a 2x2 max-pool
 after every ``pool_every`` convs, then a spatial mean and a linear
@@ -32,10 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.collectives import (all_gather, mesh_grid, psum, shard,
-                                          unshard)
-from repro_torch.dist.conv2d import AXES, IN_SPEC, KER_SPEC, \
-    conv2d_distributed
+from repro_torch.dist.collectives import mesh_grid, psum, shard, unshard
+from repro_torch.dist.conv2d import (AXES, IN_SPEC, KER_SPEC,
+                                     SAVE_GATHERED_LATER, conv2d_distributed)
 from repro_torch.dist.matmul import (OUT_SPEC as MM_OUT_SPEC, W_SPEC,
                                      matmul_distributed, matmul_grid_divides,
                                      matmul_mesh_from_conv)
@@ -82,9 +81,9 @@ def _features_to_channel_shards(y, mesh, pk: int, pc: int):
     ``c * Pk + k`` of ``Pc * Pk``, along dim 1."""
     if pc == 1:
         return y
-    full = all_gather(y, mesh, "k", dim=1, tag="reshard") if pk > 1 else y
-    spec = (None, ("c", "k")) + (None,) * (y.dim() - 2)
-    return shard(full, mesh, spec)
+    rest = (None,) * (y.dim() - 2)
+    full = unshard(y, mesh, (None, "k") + rest) if pk > 1 else y
+    return shard(full, mesh, (None, ("c", "k")) + rest)
 
 
 def _forward_dist(params, x, mesh, *, pool_every, schedule):
@@ -96,7 +95,8 @@ def _forward_dist(params, x, mesh, *, pool_every, schedule):
             xl = _features_to_channel_shards(y, mesh, pk, pc)
         y = conv2d_distributed(xl, shard(blk["w"], mesh, KER_SPEC), mesh,
                                schedule=schedule)
-        y = _bias_relu(y, shard(blk["b"], mesh, ("k",)))
+        y = _bias_relu(y, shard(blk["b"], mesh, ("k",),
+                                grad_psum_axes=("b", "h", "w")))
         if (i + 1) % pool_every == 0:
             y = _pool_local(y, ph, pw)
             h, w = h // 2, w // 2
@@ -121,13 +121,18 @@ def _forward_dist(params, x, mesh, *, pool_every, schedule):
 
 def forward_cnn(params: Dict, x: torch.Tensor, *, pool_every: int = 2,
                 use_pallas: bool = False, dist_mesh=None,
-                dist_schedule: str = "allgather") -> torch.Tensor:
+                dist_schedule: str = "allgather",
+                dist_save_gathered: bool = False) -> torch.Tensor:
     """x: [N, C, H, W] -> logits [N, n_classes], on ``x``'s device.
 
     ``dist_mesh``: a 5-axis conv mesh (``dist.conv2d.make_conv_mesh``);
     then every rank passes the same global ``x`` and parameters, computes
-    on its shards, and gets the global logits back.  ``dist_schedule``
-    picks the op schedule (``allgather`` / ``ring`` / ``ring2``)."""
+    on its shards, and gets the global logits back (and, under autograd,
+    the full parameter gradients).  ``dist_schedule`` picks the op
+    schedule (``allgather`` / ``ring`` / ``ring2``);
+    ``dist_save_gathered=True`` is a later slice."""
+    if dist_save_gathered:
+        raise NotImplementedError(SAVE_GATHERED_LATER)
     if dist_mesh is not None:
         return _forward_dist(params, x, dist_mesh, pool_every=pool_every,
                              schedule=dist_schedule)
@@ -142,24 +147,23 @@ def forward_cnn(params: Dict, x: torch.Tensor, *, pool_every: int = 2,
 
 def loss_cnn(params: Dict, batch: Dict, **kw) -> torch.Tensor:
     """Mean cross-entropy of ``batch["images"]`` against
-    ``batch["labels"]`` (forward only)."""
+    ``batch["labels"]``."""
     logits = forward_cnn(params, batch["images"], **kw)
     logp = F.log_softmax(logits.float(), dim=-1)
     return -logp.gather(1, batch["labels"][:, None]).mean()
 
 
 class CNN(nn.Module):
-    """``forward_cnn`` as a module.  The parameters do not require grad:
-    this slice is forward-only and its ops refuse tensors that do."""
+    """``forward_cnn`` as a module over the parameter dict's tensors."""
 
     def __init__(self, params: Dict, *, pool_every: int = 2,
                  use_pallas: bool = False):
         super().__init__()
         self.convs = nn.ParameterList()
         for blk in params["convs"]:
-            self.convs.append(nn.Parameter(blk["w"], requires_grad=False))
-            self.convs.append(nn.Parameter(blk["b"], requires_grad=False))
-        self.head = nn.Parameter(params["head"], requires_grad=False)
+            self.convs.append(nn.Parameter(blk["w"]))
+            self.convs.append(nn.Parameter(blk["b"]))
+        self.head = nn.Parameter(params["head"])
         self.pool_every = pool_every
         self.use_pallas = use_pallas
 

@@ -83,6 +83,13 @@ _JAX_REFERENCE = textwrap.dedent("""
 def _port_rank(rank, inputs_path):
     """Every case on this rank; returns the unsharded outputs (rank 0)
     and this rank's recorded wire per op."""
+    from repro_torch.kernels.autotune import autotune_disabled
+
+    with autotune_disabled():  # the static plan: ranks agree
+        return _port_rank_body(rank, inputs_path)
+
+
+def _port_rank_body(rank, inputs_path):
     from repro_torch.dist.collectives import (record_collectives, shard,
                                               unshard)
     from repro_torch.dist.conv2d import (IN_SPEC, KER_SPEC, OUT_SPEC,

@@ -3,7 +3,8 @@
 The port runs on the CPU, so its kernel wrappers take their plain
 PyTorch versions; the JAX side runs the Pallas kernels in interpret mode
 (as ``tests/test_kernels.py`` does) and its dispatchers with the
-autotuner off (the static paper plan the port carries).  Inputs come from
+autotuner off (the static paper plan, the port's with its tuner off
+too).  Inputs come from
 numpy with a fixed seed.  Tolerance: f32 ``atol=1e-4`` on unit-normal
 data, as ``tests/test_dist.py`` uses.
 """
@@ -20,6 +21,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.conv2d import conv2d_pallas  # noqa: E402
 from repro.kernels.matmul import matmul_pallas  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import autotune as tautotune  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d  # noqa: E402
 from repro_torch.kernels.matmul import matmul  # noqa: E402
@@ -87,9 +89,10 @@ def test_local_conv2d_matches_jax(xs, ws, stride, padding):
                                           padding)
         want = jops.local_conv2d(jnp.asarray(x), jnp.asarray(w),
                                  stride=stride, padding=padding)
-    assert ops.select_conv_impl(xs, ws, stride, padding) == want_impl
-    got = ops.local_conv2d(torch.from_numpy(x), torch.from_numpy(w),
-                           stride=stride, padding=padding)
+    with tautotune.autotune_disabled():  # the port's static plan
+        assert ops.select_conv_impl(xs, ws, stride, padding) == want_impl
+        got = ops.local_conv2d(torch.from_numpy(x), torch.from_numpy(w),
+                               stride=stride, padding=padding)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -99,8 +102,9 @@ def test_local_matmul_matches_jax(m, k, n):
     with autotune.autotune_disabled():
         want_impl = jops.select_matmul_impl(m, n, k, jnp.float32)
         want = jops.local_matmul(jnp.asarray(x), jnp.asarray(w))
-    assert ops.select_matmul_impl(m, n, k) == want_impl
-    got = ops.local_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    with tautotune.autotune_disabled():  # the port's static plan
+        assert ops.select_matmul_impl(m, n, k) == want_impl
+        got = ops.local_matmul(torch.from_numpy(x), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -114,15 +118,42 @@ def test_conv2d_same_paths_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("call", [
-    lambda a: matmul(a, torch.ones(4, 3)),
-    lambda a: conv2d(a.reshape(1, 4, 2, 2), torch.ones(3, 4, 1, 1)),
-    lambda a: ops.local_matmul(a, torch.ones(4, 3)),
-    lambda a: ops.conv2d_same(a.reshape(1, 4, 2, 2), torch.ones(3, 4, 1, 1)),
-])
-def test_requires_grad_is_refused(call):
-    with pytest.raises(NotImplementedError, match="training is a later"):
-        call(torch.ones(4, 4, requires_grad=True))
+# the raw kernel wrappers have no backward (the JAX package has no VJP
+# on a raw pallas_call either) and refuse a tensor that requires grad;
+# the ops dispatchers differentiate, and their gradients match jax.grad
+# (f32 tolerance rtol=1e-3, atol=2e-3, as tests/test_autotune.py)
+REQUIRES_GRAD_CASES = [
+    ("refuse", lambda a: matmul(a, torch.ones(4, 3))),
+    ("refuse", lambda a: conv2d(a.reshape(1, 4, 2, 2),
+                                torch.ones(3, 4, 1, 1))),
+    ("grad", (lambda a, b: ops.local_matmul(a, b),
+              lambda a, b: jops.local_matmul(a, b), (16, 24), (24, 8))),
+    ("grad", (lambda a, b: ops.conv2d_same(a, b),
+              lambda a, b: jops.conv2d_same(a, b), (2, 8, 8, 8),
+              (8, 8, 3, 3))),
+]
+
+
+@pytest.mark.parametrize("kind,call", REQUIRES_GRAD_CASES,
+                         ids=[f"call{i}" for i in range(4)])
+def test_requires_grad_is_refused(kind, call):
+    if kind == "refuse":
+        with pytest.raises(NotImplementedError, match="not differentiable"):
+            call(torch.ones(4, 4, requires_grad=True))
+        return
+    import jax
+
+    port_fn, jax_fn, xs, ws = call
+    x, w = _normal(18, *xs), _normal(19, *ws)
+    with autotune.autotune_disabled(), tautotune.autotune_disabled():
+        want = jax.grad(lambda a, b: jnp.sum(jax_fn(a, b) ** 2), (0, 1))(
+            jnp.asarray(x), jnp.asarray(w))
+        a = torch.from_numpy(x).requires_grad_(True)
+        b = torch.from_numpy(w).requires_grad_(True)
+        got = torch.autograd.grad((port_fn(a, b) ** 2).sum(), (a, b))
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-3,
+                                   atol=2e-3)
 
 
 def test_cuda_tensor_without_card_raises_not_falls_back():
