@@ -13,10 +13,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    give it (the direct conv at the forward, dIn and dKer shapes, the
    tiled GEMM at the head's three products, Winograd's batched tile GEMM
    at the forward, dIn and dv/du shapes), with its time, the plain
-   version's time, one PyTorch library call's time (TF32 off) and the
+   version's time, one PyTorch library call's time (TF32 off), the
    least time the card could take (f32 operations over the H100's
    67 TFLOP/s non-tensor peak, or bytes over 3.35 TB/s, whichever is
-   larger);
+   larger) and the share of that bound the kernel reaches; the kernel
+   and the library call are also timed queued behind a spin of the card
+   (device only) and on the host alone (the launch path); the conv's
+   sums are also given per direction (fwd, dIn, dKer);
 4. inference at full width: the repro CNN at ResNet-50's 3x3 stage
    widths (channels 64..512, 3 input channels, 1000 classes, batch 64,
    56x56) answers batches of images through ``forward_cnn(dist_mesh=...)``
@@ -102,18 +105,57 @@ def card_line() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
+def time_ms(fn, iters: int = 50, warmup: int = 5, repeats: int = 5) -> float:
+    """Device time of ``fn()`` per call, back to back (CUDA events): the
+    median over ``repeats`` runs of ``iters // repeats`` calls, so that
+    one stall of the shared host does not set the mean of all.  Where
+    the host launches slower than the device runs, this is the host's
+    time per call."""
     for _ in range(warmup):
         fn()
+    per_call = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters // repeats):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / (iters // repeats))
+    return statistics.median(per_call)
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn()`` with the host out of the way: the
+    calls are queued behind a ~3 ms spin of the device, so they run back
+    to back however long the host takes to launch them (``time_ms``
+    includes the host's time wherever the host is the slower)."""
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean host time of ``fn()`` over ``iters`` calls: the launch path
+    (wrapper, allocation, launch), without waiting for the device."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e3
 
 
 def bound(flops: float, nbytes: float):
@@ -135,7 +177,8 @@ def conv_layers():
     return out
 
 
-def compare_kernel(name, kernel, plain, library, args, flops, nbytes):
+def compare_kernel(name, kernel, plain, library, args, flops, nbytes,
+                   direction=None):
     out = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -152,14 +195,22 @@ def compare_kernel(name, kernel, plain, library, args, flops, nbytes):
     bms, by = bound(flops, nbytes)
     row = {"shape": name, "max_abs_err": abs_err, "rel_err": rel,
            "kernel_ms": time_ms(lambda: kernel(*args)),
-           "plain_ms": time_ms(lambda: plain(*args), iters=3, warmup=1),
+           "plain_ms": time_ms(lambda: plain(*args), iters=3, warmup=1,
+                               repeats=1),
            "library_ms": time_ms(lambda: library(*args)),
            "bound_ms": bms, "bound_by": by}
+    row["bound_share"] = bms / row["kernel_ms"]
+    row["kernel_device_ms"] = device_ms(lambda: kernel(*args))
+    row["library_device_ms"] = device_ms(lambda: library(*args))
+    row["kernel_host_ms"] = host_ms(lambda: kernel(*args))
+    row["library_host_ms"] = host_ms(lambda: library(*args))
+    if direction is not None:
+        row["direction"] = direction
     print(json.dumps(row), flush=True)
     return row
 
 
-def conv_row(name, x, w):
+def conv_row(name, x, w, direction):
     """Kernel vs plain vs ``F.conv2d`` for one stride-1 VALID conv."""
     from repro_torch.kernels.conv2d import conv2d, conv2d_plain
 
@@ -170,7 +221,7 @@ def conv_row(name, x, w):
         name, lambda a, b: conv2d(a, b, padding="VALID"),
         lambda a, b: conv2d_plain(a, b, padding="VALID"), F.conv2d, (x, w),
         2.0 * n * k * c * ho * wo * kh * kw,
-        4.0 * (x.numel() + w.numel() + n * k * ho * wo))
+        4.0 * (x.numel() + w.numel() + n * k * ho * wo), direction)
 
 
 def gemm_row(name, kernel, plain, library, a, b):
@@ -216,19 +267,19 @@ def kernel_phase(device):
         g = rand(BATCH, k, h, h)
         if c % 8 == 0:
             row = conv_row(f"conv fwd VALID N={BATCH} C={c} K={k} "
-                           f"H=W={h + 2}", xw, w)
+                           f"H=W={h + 2}", xw, w, "fwd")
             conv_infer.append(row)
             # dIn: the cotangent padded by 2 against the flipped,
             # O/I-swapped kernel
             gp = F.pad(g, (2, 2, 2, 2))
             wt = w.flip(2, 3).transpose(0, 1).contiguous()
             din = conv_row(f"conv dIn N={BATCH} C={k} K={c} H=W={h + 4}",
-                           gp, wt)
+                           gp, wt, "dIn")
             path["conv2d"] += [row, din]
         # dKer: the N/C-transposed VALID conv, the cotangent as kernel
         dker = conv_row(f"conv dKer N={c} C={BATCH} K={k} H=W={h + 2} "
                         f"kernel {h}x{h}", xw.transpose(0, 1).contiguous(),
-                        g.transpose(0, 1).contiguous())
+                        g.transpose(0, 1).contiguous(), "dKer")
         path["conv2d"].append(dker)
         del x, w, xw, g
 
@@ -762,6 +813,14 @@ def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
     bound_bytes = sum(r["bound_ms"] for r in path_rows
                       if r["bound_by"] == "bytes")
     kernel_ms = sum(r["kernel_ms"] for r in path_rows)
+    by_direction = {}
+    for r in path_rows:
+        if "direction" in r:
+            d = by_direction.setdefault(r["direction"], {
+                "kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0})
+            for key in d:
+                d[key] += r[key]
+    extra = {"ms_by_direction": by_direction} if by_direction else {}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "jax_function": jax_function,
             "launches": launches, "launches_by_path": by_path,
@@ -772,7 +831,12 @@ def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
             "bound_ms": bound_ops + bound_bytes,
             "bound_by": "operations" if bound_ops >= bound_bytes
             else "bytes",
-            "library_ms": sum(r["library_ms"] for r in path_rows)}
+            "library_ms": sum(r["library_ms"] for r in path_rows),
+            "bound_share": (bound_ops + bound_bytes) / kernel_ms,
+            **{key: sum(r[key] for r in path_rows)
+               for key in ("kernel_device_ms", "library_device_ms",
+                           "kernel_host_ms", "library_host_ms")},
+            **extra}
 
 
 def main() -> int:

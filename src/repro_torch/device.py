@@ -38,7 +38,9 @@ def forward_only(*tensors) -> None:
     backward (the JAX package has no VJP on a raw ``pallas_call``
     either): differentiable calls go through ``kernels.ops``, whose
     autograd Functions run the kernels on detached operands."""
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "a raw kernel wrapper is not differentiable; call the "
-            "kernels.ops dispatchers (got a tensor with requires_grad=True)")
+    for t in tensors:
+        if t.requires_grad:
+            raise NotImplementedError(
+                "a raw kernel wrapper is not differentiable; call the "
+                "kernels.ops dispatchers (got a tensor with "
+                "requires_grad=True)")

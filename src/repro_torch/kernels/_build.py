@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (all
 sources at once, one ``nvcc`` process each) and linked into one shared
 library with a plain C interface, which ``ctypes`` loads.  The library
 lands in ``build/`` beside this file (listed in ``.gitignore``) under a
-name keyed by the hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is not.  A kernel that cannot be built,
+name keyed by the hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is not.  A kernel that cannot be built,
 loaded or launched raises :class:`KernelError`, which the autotuner lets
 through: a broken hand-written kernel must never lose a timing race
 quietly.  Each object's ``ptxas`` report (registers, shared memory,
@@ -35,8 +36,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; each returns cudaGetLastError()
 SIGNATURES = {
-    "repro_gemm_f32": [_P, _P, _P, _P] + [_I] * 5 + [_P],
-    "repro_conv2d_f32": [_P, _P, _P] + [_I] * 11 + [_P],
+    "repro_gemm_f32": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "repro_conv2d_f32": [_P, _P, _P, _P] + [_I] * 15 + [_P],
 }
 
 
@@ -56,7 +57,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
@@ -121,5 +122,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s card, as a pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s card, as a pointer: the raw
+    handle, without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` builds on every call, a large share of
+    a small GEMM's launch time on the host."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

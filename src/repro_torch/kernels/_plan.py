@@ -1,0 +1,88 @@
+"""The launch plan of the tile GEMM core (``csrc/tile_gemm.cuh``), shared
+by both of its wrappers: ``matmul.launch_gemm`` (``[T,M,K] @ [T,K,N]``)
+and ``conv2d.conv2d`` (the implicit GEMM with ``M = N*Ho*Wo`` rows,
+``K`` columns and a reduction of ``R = C*kh*kw``).
+
+One pure function, :func:`gemm_plan`, picks the tile and cuts the
+reduction:
+
+* the 128x128 tile (8x8 outputs per thread) where the output holds at
+  least one wave of such tiles, one per SM, and both extents reach 128;
+  the 64x64 tile (4x4 per thread) everywhere else;
+* ``splits``: the reduction is cut into chunks of whole slabs (the
+  tile's ``BK``-deep unit of staging) until the card has about
+  :data:`BLOCKS_PER_SM` blocks per SM, but no chunk shorter than
+  :data:`MIN_SLABS` slabs.  A product whose tiles already reach that
+  many blocks is not split.  The partial tiles are summed in split
+  order: up to :data:`MAX_CLUSTER` splits as one thread-block cluster
+  through distributed shared memory (no scratch, one launch), more
+  through a scratch buffer and a second kernel.  A product of at most
+  :data:`LAUNCH_BOUND_FMAS` multiply-adds (the classifier head's) is
+  bound by launches, not FMAs, so it takes no more splits than one
+  cluster holds: a second launch and a scratch allocation cost it more
+  host time than the extra splits save on the card.
+
+Both constants come from ``tools/split_sweep.py`` on an H100: four
+blocks per SM beat two by 15% on the long dKer reductions (a 64x64
+block holds 63 registers a thread, so four fit an SM), and the chunk
+floor moved no shape by more than the run-to-run spread.
+
+The SM count comes from the card (``sm_count``); the CPU tests pass the
+H100's 132.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+# (rows, columns) of a block tile -> the depth of one slab of its
+# configuration, in the order the plan tries them (tile_gemm.cuh: Big,
+# Small)
+TILES = {(128, 128): 8, (64, 64): 16}
+BLOCKS_PER_SM = 4
+MIN_SLABS = 4
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+LAUNCH_BOUND_FMAS = 1 << 26  # ~2 us of the H100's f32 FFMA peak
+GRID_YZ_MAX = 65535
+
+
+class GemmPlan(NamedTuple):
+    tile: tuple   # (rows, columns) of the block tile, a key of TILES
+    slab: int     # reduction indices per slab of that tile
+    splits: int   # reduction chunks, each non-empty
+    chunk: int    # reduction indices per chunk, whole slabs
+    grid: tuple   # (M tiles, N tiles, T * splits)
+    scratch: int  # floats of split scratch: 0 for one split or a cluster
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(t: int, m: int, n: int, r: int, sms: int = 132) -> GemmPlan:
+    """The launch of ``[t, m, r] @ [t, r, n]`` on a card with ``sms`` SMs."""
+    tile = next(((tm, tn) for tm, tn in TILES
+                 if m >= tm and n >= tn
+                 and t * _cdiv(m, tm) * _cdiv(n, tn) >= sms), (64, 64))
+    tm, tn = tile
+    slab = TILES[tile]
+    tiles = t * _cdiv(m, tm) * _cdiv(n, tn)
+    slabs = max(1, _cdiv(r, slab))
+    cap = MAX_CLUSTER if t * m * n * r <= LAUNCH_BOUND_FMAS else slabs
+    splits = max(1, min(_cdiv(BLOCKS_PER_SM * sms, tiles),
+                        slabs // MIN_SLABS, cap, GRID_YZ_MAX // t))
+    per = _cdiv(slabs, splits)
+    splits = _cdiv(slabs, per)  # every chunk non-empty
+    return GemmPlan(tile, slab, splits, per * slab,
+                    (_cdiv(m, tm), _cdiv(n, tn), t * splits),
+                    t * m * n * splits if splits > MAX_CLUSTER else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

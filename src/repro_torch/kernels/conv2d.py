@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import forward_only
 from repro_torch.kernels import _build
+from repro_torch.kernels._plan import gemm_plan, sm_count
 
 
 def _pads(kh: int, kw: int, padding: str):
@@ -65,9 +66,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     ho, wo = (h, wd) if padding == "SAME" else (h - kh + 1, wd - kw + 1)
     if ho <= 0 or wo <= 0:
         raise ValueError(f"kernel {kh}x{kw} larger than the input {h}x{wd}")
-    if x.device.type == "cpu":
-        return conv2d_plain(x, w, padding=padding)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return conv2d_plain(x, w, padding=padding)
         raise ValueError(f"conv2d runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"the CUDA conv2d takes float32, got {x.dtype} "
@@ -75,10 +76,15 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the CUDA conv2d takes contiguous operands")
     lib = _build.load()
-    out = torch.empty((n, k, ho, wo), dtype=x.dtype, device=x.device)
+    plan = gemm_plan(1, n * ho * wo, k, c * kh * kw,
+                     sm_count(x.get_device()))
+    out = x.new_empty(n, k, ho, wo)
+    scratch = x.new_empty(plan.scratch) if plan.scratch else None
     _build.check(lib, lib.repro_conv2d_f32(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, c, h, wd, k, kh, kw,
-        ho, wo, pad_h, pad_w, _build.stream_handle(x)), "conv2d")
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, n, c, h, wd, k,
+        kh, kw, ho, wo, pad_h, pad_w, *plan.tile, plan.splits, plan.chunk,
+        _build.stream_handle(x)), "conv2d")
     conv2d.launches += 1
     return out
 

@@ -10,193 +10,248 @@
 // _conv_kernel).  The Pallas kernel holds a whole padded H x W plane of a
 // (batch, C-slab) block in VMEM and runs the stencil as kh*kw shifted-window
 // matmuls, with the Out tile resident across the sequential C grid axis.
-// A 56x56 plane of 64+ channels does not fit the 227 KB of shared memory a
-// Hopper block may use, so this kernel tiles the output pixels as well:
-// each block owns an 8x16 tile of output pixels of one image times 32
-// output channels, and loops over C inside the block (the sequential grid
-// axis of the TPU kernel).  Per C step of 8 channels it stages the input
-// tile plus its (kh-1) x (kw-1) halo and the matching kernel slice in
-// shared memory, with masked loads: zeros past the image edge (SAME) or
-// past the window edge (VALID), and zeros past C and K, so C = 3 and
-// ragged K work.
 //
-// What bounds it on this card: at the CNN's shapes (C, K in 64..512,
-// 3x3, batch 64) the conv does 2*N*K*C*H*W*9 FLOPs on a few tens of MB:
-// 0.1-0.2 ms of f32 FFMA work at 67 TFLOP/s against ~0.01-0.03 ms of HBM
-// traffic, so operations bound it, and the limit to approach is the FFMA
-// issue rate.  The simple design keeps each thread on a 4-pixel x
-// 4-channel register tile so every shared-memory load feeds several FMAs;
-// for 3x3 the stencil loops are unrolled at compile time so the six input
-// values a row of the micro-tile needs are loaded once per (c, r).  It
-// stays in IEEE f32 (no TF32 tensor cores).  Implicit GEMM on wgmma, TMA
-// staging and multi-stage pipelining are later work.
+// Here the conv is an implicit GEMM on the shared tile core
+// (csrc/tile_gemm.cuh):
 //
-// Kernels as large as the image.  The training backward's dKer
-// contraction is a VALID conv whose "kernel" is the output cotangent
-// (56x56 and down on the CNN's path), so kh, kw are not small.  The
-// run-time-kernel instantiation (KS == 0) therefore stages the kernel
-// taps in chunks of at most kTap x kTap (rows x columns) per C step,
-// with the input rows and columns that chunk reads: shared memory is
-// bounded (77 KB) whatever kh and kw are.  At the dKer shapes only 3x3 of
-// a tile's 8x16 output pixels are real, so the kernel is slow there.
+//   out[(n,y,x), k] = sum_{(c,r,s)} x[n, c, y+r-p, x+s-p] * w[k, (c,r,s)]
+//
+// rows M = N*Ho*Wo, columns K, reduction R = C*kh*kw.  Nothing is staged
+// per tap: the A loader gathers the (row, reduction index) elements of
+// each slab straight from x with 4-byte cp.async copies, zero-filled past
+// the image (SAME), past M and past R, so C = 3, ragged K and C, and any
+// kh, kw need no branch.  Each thread works out its rows' (n, y, x) once
+// per tile and walks its reduction indices (c, r, s) a slab at a time by
+// adding the slab's own (c, r, s) decomposition with carries: no division
+// in the reduction loop.  The B loader reads w as [K, R] along R.  The
+// output tile is scattered back to NCHW.
+//
+// Two A loaders, because x is contiguous in different directions:
+//
+// * along the rows (Ho = H-ish planes: the forward, and dIn, which is the
+//   VALID conv of the padded cotangent with the flipped kernel):
+//   consecutive threads take consecutive rows (x), one reduction index
+//   each;
+// * along the reduction (kw > Wo: dKer, the N/C-transposed VALID conv
+//   whose "kernel" is the cotangent, as wide as the plane, with a 3x3
+//   output): consecutive threads take consecutive reduction indices (s).
+//
+// What bounds it on this card: at the CNN's shapes (C, K in 64..512, 3x3,
+// batch 64) the forward and dIn do 2*N*K*C*H*W*9 FLOPs on a few tens of
+// MB, so f32 FFMA (67 TFLOP/s) bounds them, and the 8x8 register tile
+// feeds 64 FMAs per 4 shared-memory float4 loads.  dKer has the same
+// FLOPs but a 3x3 output: M = 9C rows (27 to 4608) over a reduction of
+// N*H*W (3136 to 200704).  The launch plan (kernels/_plan.py) splits that
+// reduction into whole-slab chunks until the card has about four blocks
+// per SM (up to 523 splits at C = 3), and the tile core sums the partial
+// tiles in a fixed order.
+// Left for a later PR: 3xTF32 on the tensor cores (wgmma fed by TMA or
+// by the gathers through an mbarrier ring), which changes the IEEE f32
+// contract; an output tile staged through shared memory for coalesced
+// NCHW stores.
 
-#include <cuda_runtime.h>
+#include <type_traits>
+
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int kTH = 8;    // output rows per block tile
-constexpr int kTW = 16;   // output cols per block tile
-constexpr int kBK = 32;   // output channels per block
-constexpr int kBC = 8;    // input channels staged per C step
-constexpr int kPX = 4;    // adjacent output pixels per thread
-constexpr int kKX = 4;    // output channels per thread
-constexpr int kThreads = (kTH * kTW / kPX) * (kBK / kKX);  // 256
-constexpr int kTap = 8;   // kernel taps per chunk and dim (KS == 0)
+struct ConvParams {
+  tile::Problem g;  // m = N*Ho*Wo, n = K, r = C*kh*kw
+  const float* x;
+  const float* w;
+  int c, h, w_in, kh, kw, wo, howo, pad_h, pad_w;
+};
 
-// KS > 0: a KS x KS kernel known at compile time, staged whole per C
-// step; KS == 0: kh, kw at run time, staged in chunks of tr x ts taps.
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
-conv2d_direct(const float* __restrict__ x, const float* __restrict__ w,
-              float* __restrict__ out, int C, int H, int W, int K,
-              int kh_rt, int kw_rt, int Ho, int Wo, int pad_h, int pad_w,
-              int tiles_w, int tr_rt, int ts_rt) {
-  const int kh = KS > 0 ? KS : kh_rt;
-  const int kw = KS > 0 ? KS : kw_rt;
-  const int tr = KS > 0 ? KS : tr_rt;  // tap rows per chunk
-  const int ts = KS > 0 ? KS : ts_rt;  // tap columns per chunk
-  const int tih = kTH + tr - 1;
-  const int tiw = kTW + ts - 1;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [kBC][tr][ts][kBK]
-  float* xs = ws + kBC * tr * ts * kBK;         // [kBC][tih][tiw]
+// The (c, r, s) decomposition of a reduction index, and of one slab, as
+// an offset into one image's [C, H, W] planes.
+struct Tap {
+  int r, s, off;  // off = c*H*W + r*W + s
+};
 
-  const int n = blockIdx.z;
-  const int k0 = blockIdx.y * kBK;
-  const int oy0 = (blockIdx.x / tiles_w) * kTH;
-  const int ox0 = (blockIdx.x % tiles_w) * kTW;
-  const int tid = threadIdx.x;
-  const int kg = tid / 32;  // a warp shares its 4 output channels
-  const int pg = tid % 32;
-  const int py = pg / (kTW / kPX);
-  const int px0 = (pg % (kTW / kPX)) * kPX;
+__device__ __forceinline__ Tap tap_of(const ConvParams& p, int k) {
+  const int khw = p.kh * p.kw;
+  const int c = k / khw;
+  const int rem = k - c * khw;
+  const int r = rem / p.kw;
+  const int s = rem - r * p.kw;
+  return {r, s, (c * p.h + r) * p.w_in + s};
+}
 
-  float acc[kPX][kKX];
-#pragma unroll
-  for (int i = 0; i < kPX; ++i)
-#pragma unroll
-    for (int j = 0; j < kKX; ++j) acc[i][j] = 0.f;
-
-  const float* xn = x + (size_t)n * C * H * W;
-  const int trs = tr * ts;
-  for (int c0 = 0; c0 < C; c0 += kBC) {
-    for (int r0 = 0; r0 < kh; r0 += tr) {
-      for (int s0 = 0; s0 < kw; s0 += ts) {
-        const int nr = KS > 0 ? KS : min(tr, kh - r0);
-        const int ns = KS > 0 ? KS : min(ts, kw - s0);
-        // kernel taps of this chunk: global reads run along (c, r, s) of
-        // one k, shared memory holds them k-minor so a thread reads its 4
-        // channels as a float4; zero past the chunk, C and K
-        for (int i = tid; i < kBK * kBC * trs; i += kThreads) {
-          const int ss = i % ts;
-          const int rr = (i / ts) % tr;
-          const int cc = (i / trs) % kBC;
-          const int kk = i / (trs * kBC);
-          const int gk = k0 + kk, gc = c0 + cc;
-          ws[((cc * tr + rr) * ts + ss) * kBK + kk] =
-              (gk < K && gc < C && rr < nr && ss < ns)
-                  ? w[(((size_t)gk * C + gc) * kh + r0 + rr) * kw + s0 + ss]
-                  : 0.f;
-        }
-        // the input rows and columns these taps read, zero past the
-        // image / window / C edge
-        for (int i = tid; i < kBC * tih * tiw; i += kThreads) {
-          const int xx = i % tiw;
-          const int yy = (i / tiw) % tih;
-          const int cc = i / (tiw * tih);
-          const int gy = oy0 + r0 + yy - pad_h;
-          const int gx = ox0 + s0 + xx - pad_w;
-          const int gc = c0 + cc;
-          xs[i] = (gc < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-                      ? xn[((size_t)gc * H + gy) * W + gx]
-                      : 0.f;
-        }
-        __syncthreads();
-        for (int cc = 0; cc < kBC; ++cc) {
-          // nr, ns are compile-time constants when KS > 0: these loops
-          // unroll and the overlapping xrow loads across s are loaded once
-#pragma unroll
-          for (int r = 0; r < nr; ++r) {
-            const float* xrow = xs + (cc * tih + py + r) * tiw + px0;
-            const float* wrow = ws + ((cc * tr + r) * ts) * kBK + kg * kKX;
-#pragma unroll
-            for (int s = 0; s < ns; ++s) {
-              const float4 wv =
-                  *reinterpret_cast<const float4*>(wrow + s * kBK);
-#pragma unroll
-              for (int i = 0; i < kPX; ++i) {
-                const float a = xrow[s + i];
-                acc[i][0] = fmaf(a, wv.x, acc[i][0]);
-                acc[i][1] = fmaf(a, wv.y, acc[i][1]);
-                acc[i][2] = fmaf(a, wv.z, acc[i][2]);
-                acc[i][3] = fmaf(a, wv.w, acc[i][3]);
-              }
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
+// t += d, both decompositions: one carry from s into r, one from r into c
+__device__ __forceinline__ void advance(Tap& t, const Tap& d,
+                                        const ConvParams& p) {
+  t.s += d.s;
+  t.r += d.r;
+  t.off += d.off;
+  if (t.s >= p.kw) {
+    t.s -= p.kw;
+    t.r += 1;
+    t.off += p.w_in - p.kw;
   }
-
-  const int oy = oy0 + py;
-  if (oy >= Ho) return;
-#pragma unroll
-  for (int j = 0; j < kKX; ++j) {
-    const int gk = k0 + kg * kKX + j;
-    if (gk >= K) continue;
-    float* orow = out + (((size_t)n * K + gk) * Ho + oy) * Wo;
-#pragma unroll
-    for (int i = 0; i < kPX; ++i) {
-      const int ox = ox0 + px0 + i;
-      if (ox < Wo) orow[ox] = acc[i][j];
-    }
+  if (t.r >= p.kh) {
+    t.r -= p.kh;
+    t.off += (p.h - p.kh) * p.w_in;
   }
 }
 
-template <int KS>
-int launch(const float* x, const float* w, float* out, int n, int c, int h,
-           int wd, int k, int kh, int kw, int ho, int wo, int pad_h,
-           int pad_w, cudaStream_t stream) {
-  const int tr = KS > 0 ? KS : (kh < kTap ? kh : kTap);
-  const int ts = KS > 0 ? KS : (kw < kTap ? kw : kTap);
-  const size_t smem = sizeof(float) *
-      ((size_t)kBC * tr * ts * kBK + (size_t)kBC * (kTH + tr - 1) * (kTW + ts - 1));
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv2d_direct<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int tiles_w = (wo + kTW - 1) / kTW;
-  const int tiles_h = (ho + kTH - 1) / kTH;
-  const dim3 grid(tiles_w * tiles_h, (k + kBK - 1) / kBK, n);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  conv2d_direct<KS><<<grid, kThreads, smem, stream>>>(
-      x, w, out, c, h, wd, k, kh, kw, ho, wo, pad_h, pad_w, tiles_w, tr, ts);
-  return (int)cudaGetLastError();
+// A row (n, y, x) of the implicit GEMM: its image's base offset and the
+// top-left input pixel of its window (iy0 far out of range for a row
+// past M, so its copies zero-fill)
+struct Row {
+  long long base;
+  int iy0, ix0;
+};
+
+__device__ __forceinline__ Row row_of(const ConvParams& p, int m) {
+  if (m >= p.g.m) return {0, -(1 << 30), 0};
+  const int img = m / p.howo;
+  const int yx = m - img * p.howo;
+  const int y = yx / p.wo;
+  const int x = yx - y * p.wo;
+  const int iy0 = y - p.pad_h, ix0 = x - p.pad_w;
+  return {(long long)img * p.c * p.h * p.w_in + (long long)iy0 * p.w_in +
+              ix0,
+          iy0, ix0};
 }
+
+__device__ __forceinline__ bool inside(const ConvParams& p, const Row& row,
+                                       const Tap& t) {
+  return (unsigned)(row.iy0 + t.r) < (unsigned)p.h &&
+         (unsigned)(row.ix0 + t.s) < (unsigned)p.w_in;
+}
+
+// consecutive threads on consecutive rows; each thread one row and
+// kCount reduction indices kKStep apart
+template <class C>
+struct GatherAlongRows {
+  static constexpr int kKStep = C::kThreads / C::BM;
+  static constexpr int kCount = C::kPerThread;
+  const ConvParams& p;
+  Row row;
+  Tap tap[kCount];
+  Tap slab;
+  int k, k_end, dst;
+
+  __device__ GatherAlongRows(const ConvParams& p_, int, int row0,
+                             int k_begin, int k_end_)
+      : p(p_), k_end(k_end_) {
+    const int mm = threadIdx.x % C::BM;
+    const int kq = threadIdx.x / C::BM;
+    row = row_of(p, row0 + mm);
+    k = k_begin + kq;
+#pragma unroll
+    for (int j = 0; j < kCount; ++j) tap[j] = tap_of(p, k + j * kKStep);
+    slab = tap_of(p, C::BK);
+    dst = kq * C::LDA + mm;
+  }
+
+  __device__ __forceinline__ void load(float* s) {
+#pragma unroll
+    for (int j = 0; j < kCount; ++j) {
+      const bool ok = k + j * kKStep < k_end && inside(p, row, tap[j]);
+      tile::cp_async4(s + dst + j * kKStep * C::LDA,
+                      ok ? p.x + (row.base + tap[j].off) : p.x, ok);
+      advance(tap[j], slab, p);
+    }
+    k += C::BK;
+  }
+};
+
+// consecutive threads on consecutive reduction indices; each thread one
+// index and kCount rows kRowStep apart
+template <class C>
+struct GatherAlongK {
+  static constexpr int kRowStep = C::kThreads / C::BK;
+  static constexpr int kCount = C::kPerThread;
+  const ConvParams& p;
+  Row row[kCount];
+  Tap tap, slab;
+  int k, k_end, dst;
+
+  __device__ GatherAlongK(const ConvParams& p_, int, int row0, int k_begin,
+                          int k_end_)
+      : p(p_), k_end(k_end_) {
+    const int kk = threadIdx.x % C::BK;
+    const int rr = threadIdx.x / C::BK;
+#pragma unroll
+    for (int j = 0; j < kCount; ++j)
+      row[j] = row_of(p, row0 + rr + j * kRowStep);
+    k = k_begin + kk;
+    tap = tap_of(p, k);
+    slab = tap_of(p, C::BK);
+    dst = kk * C::LDA + rr;
+  }
+
+  __device__ __forceinline__ void load(float* s) {
+    const bool kin = k < k_end;
+#pragma unroll
+    for (int j = 0; j < kCount; ++j) {
+      const bool ok = kin && inside(p, row[j], tap);
+      tile::cp_async4(s + dst + j * kRowStep,
+                      ok ? p.x + (row[j].base + tap.off) : p.x, ok);
+    }
+    advance(tap, slab, p);
+    k += C::BK;
+  }
+};
+
+template <bool kAlongK>
+struct ConvOp {
+  using Params = ConvParams;
+
+  template <class C>
+  struct A : std::conditional<kAlongK, GatherAlongK<C>,
+                              GatherAlongRows<C>>::type {
+    using Base = typename std::conditional<kAlongK, GatherAlongK<C>,
+                                           GatherAlongRows<C>>::type;
+    __device__ A(const Params& p, int batch, int row0, int k_begin,
+                 int k_end)
+        : Base(p, batch, row0, k_begin, k_end) {}
+  };
+
+  // w as [K, R]: B[k][col] = w[col * R + k]
+  template <class C>
+  struct B : tile::KContiguous<C, C::BN, C::LDB> {
+    __device__ B(const Params& p, int, int col0, int k_begin, int k_end)
+        : tile::KContiguous<C, C::BN, C::LDB>(p.w, p.g.r, p.g.n, col0,
+                                              k_begin, k_end) {}
+  };
+
+  __device__ static size_t row_offset(const Params& p, int, int row) {
+    const int img = row / p.howo;
+    return (size_t)img * p.g.n * p.howo + (row - img * p.howo);
+  }
+  __device__ static size_t col_offset(const Params& p, int col) {
+    return (size_t)col * p.howo;
+  }
+};
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
+// The plan (kernels/_plan.py::gemm_plan with m = n*ho*wo, n = k,
+// r = c*kh*kw) gives the tile, `splits` and `chunk`; `scratch` holds
+// splits * n*k*ho*wo floats when the plan sums the splits through it, and
+// is null when it sums them in a cluster (or splits = 1).  The A loader
+// runs along the reduction when the window is wider than the output.
 extern "C" int repro_conv2d_f32(const float* x, const float* w, float* out,
-                                int n, int c, int h, int wd, int k, int kh,
-                                int kw, int ho, int wo, int pad_h, int pad_w,
-                                cudaStream_t stream) {
+                                float* scratch, int n, int c, int h, int wd,
+                                int k, int kh, int kw, int ho, int wo,
+                                int pad_h, int pad_w, int tile_m, int tile_n,
+                                int splits, int chunk, cudaStream_t stream) {
   if (n <= 0 || c <= 0 || k <= 0 || ho <= 0 || wo <= 0 || kh <= 0 || kw <= 0)
     return (int)cudaErrorInvalidValue;
-  if (kh == 3 && kw == 3)
-    return launch<3>(x, w, out, n, c, h, wd, k, kh, kw, ho, wo, pad_h, pad_w, stream);
-  return launch<0>(x, w, out, n, c, h, wd, k, kh, kw, ho, wo, pad_h, pad_w, stream);
+  const size_t limit = (size_t)1 << 31;
+  if ((size_t)n * ho * wo >= limit || (size_t)c * kh * kw >= limit ||
+      (size_t)c * h * wd >= limit)
+    return (int)cudaErrorInvalidValue;
+  const tile::Problem g{1, n * ho * wo, k, c * kh * kw, chunk, 1, nullptr,
+                        0};
+  const ConvParams p{g, x, w, c, h, wd, kh, kw, wo, ho * wo, pad_h, pad_w};
+  if (kw > wo)
+    return tile::launch_tile<ConvOp<true>>(tile_m, tile_n, p, out, scratch,
+                                           splits, stream);
+  return tile::launch_tile<ConvOp<false>>(tile_m, tile_n, p, out, scratch,
+                                          splits, stream);
 }

@@ -14,147 +14,96 @@
 // The Pallas kernels walk their grids -- (16, P/bp, K/bk, C/bc) and
 // (M/bm, N/bn, K/bk) -- in order on one TPU core and keep each output
 // block in a VMEM f32 scratch while the reduction blocks stream past it.
-// Blocks on a GPU run in parallel and in no order, so here the batch entry
-// is blockIdx.z, the output tile blockIdx.(y, x), and the sequential
-// reduction axis a loop inside the block.  The Pallas blocks must divide
-// the extents; here ragged edges are masked, so any M, N, K work (the
-// 1000-class head included).
+// Blocks on a GPU run in parallel and in no order: here the output tile
+// is blockIdx.(x, y), the batch entry and the reduction split
+// blockIdx.z, and the sequential reduction axis a loop inside the block.
+// The Pallas blocks must divide the extents; here ragged edges are
+// zero-filled by the copies, so any M, N, K work (the 1000-class head
+// included).
 //
-// tile_64x64: one 64x64 output tile over a K range.  256 threads each own
-// a 4x4 register micro-tile; the K loop stages a 64x16 slab of A
-// (transposed, padded against bank conflicts) and a 16x64 slab of B in
-// shared memory, zero-filled past the edges.
-//
-// Split reductions: a long K over few output tiles -- Winograd's dU
-// product [16, C, P] @ [16, P, K] (a 64x64 output per frequency over up to
-// 50176), the im2col candidate's dKer product [9C, N*H*W] @ [N*H*W, K] --
-// would leave most of the 132 SMs idle.  With splits > 1 (chosen by the
-// wrapper) the reduction is cut into `splits` chunks of whole 16-wide
-// slabs, blockIdx.z runs over (split, t), each block writes its partial
-// tile to a scratch [splits, T, M, N] the wrapper allocated, and a second
-// kernel sums the splits in a fixed order (deterministic, no atomics).
+// The main loop is the shared tile core (csrc/tile_gemm.cuh): a 4-slab
+// cp.async ring, a 128x128 tile with 8x8 outputs per thread or a 64x64
+// tile with 4x4.  This file only says where the operands and outputs
+// live: A through 4-byte copies along k (shared memory holds A k-major,
+// which a 16-byte copy of a row of A cannot fill), B through 16-byte
+// copies when its rows are 16-byte aligned (N % 4 == 0), else 4-byte
+// copies.
 //
 // What bounds it on this card: the Winograd forward shapes
 // ([16, 64*ceil(Ho/2)^2, C] @ [16, C, K], C, K in 64..512) do 2*16*P*C*K
 // FLOPs on 4*16*(PC + CK + PK) bytes: the 64 -> 64 layer at 56x56 is bound
 // by bytes (0.12 ms at 3.35 TB/s), the wider ones by f32 FFMA
-// (67 TFLOP/s), so the limit to approach is the FFMA issue rate with each
-// shared-memory load feeding 4 FMAs.  The classifier head, [64,512] @
-// [512,1000], is 65.5 MFLOP -- about 1 us of FFMA work; at that size
-// launch latency and the 16 output tiles for 132 SMs bound it in
-// practice.  It stays in IEEE f32 for parity with the f32 reference;
-// wgmma/TMA pipelining is later work.
+// (67 TFLOP/s); the 8x8 register tile feeds 64 FMAs from 4 shared-memory
+// float4 loads.  The classifier head, [64,512] @ [512,1000], is 65.5
+// MFLOP, about 1 us of FFMA work over 16 output tiles of 64x64: launch
+// latency and the host's time per call bound it.  The plan
+// (kernels/_plan.py) splits its reduction 8 ways, and the 8 splits of a
+// tile sum in a thread-block cluster: one launch, no scratch.  Long thin
+// products -- Winograd's dU, the im2col candidate's dKer product
+// [9C, N*H*W] @ [N*H*W, K] -- split until the card has about four blocks
+// per SM and sum through scratch.  Left for a later PR: 3xTF32 on the
+// tensor cores (wgmma with TMA-staged operands and an mbarrier ring),
+// which changes the IEEE f32 contract and needs its own tolerance
+// argument.
 
-#include <cuda_runtime.h>
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kTM = 4;
-constexpr int kTN = 4;
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
+template <bool kVecB>
+struct GemmOp {
+  struct Params {
+    tile::Problem g;
+    const float* a;
+    const float* b;
+  };
 
-__device__ __forceinline__ void tile_64x64(
-    const float* __restrict__ a, const float* __restrict__ b,
-    float* __restrict__ c, int m, int n, int k, int k_begin, int k_end,
-    int row0, int col0) {
-  __shared__ float as[kBK][kBM + 1];  // A slab stored k-major
-  __shared__ float bs[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);  // column group of the micro-tile
-  const int ty = tid / (kBN / kTN);  // row group of the micro-tile
+  template <class C>
+  struct A : tile::KContiguous<C, C::BM, C::LDA> {
+    __device__ A(const Params& p, int batch, int row0, int k_begin,
+                 int k_end)
+        : tile::KContiguous<C, C::BM, C::LDA>(
+              p.a + (size_t)batch * p.g.m * p.g.r, p.g.r, p.g.m, row0,
+              k_begin, k_end) {}
+  };
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  template <class C>
+  struct B : tile::TileContiguous<C, C::BN, C::LDB, kVecB> {
+    __device__ B(const Params& p, int batch, int col0, int k_begin,
+                 int k_end)
+        : tile::TileContiguous<C, C::BN, C::LDB, kVecB>(
+              p.b + (size_t)batch * p.g.r * p.g.n, p.g.n, p.g.n, col0,
+              k_begin, k_end) {}
+  };
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK, kk = i % kBK;
-      const int gr = row0 + r, gk = k0 + kk;
-      as[kk][r] = (gr < m && gk < k_end) ? a[(size_t)gr * k + gk] : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int kk = i / kBN, cc = i % kBN;
-      const int gk = k0 + kk, gc = col0 + cc;
-      bs[kk][cc] = (gk < k_end && gc < n) ? b[(size_t)gk * n + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = as[kk][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  __device__ static size_t row_offset(const Params& p, int batch, int row) {
+    return ((size_t)batch * p.g.m + row) * p.g.n;
   }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gr = row0 + ty * kTM + i;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gc = col0 + tx * kTN + j;
-      if (gc < n) c[(size_t)gr * n + gc] = acc[i][j];
-    }
+  __device__ static size_t col_offset(const Params&, int col) {
+    return (size_t)col;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gemm_tiled(const float* __restrict__ a, const float* __restrict__ b,
-           float* __restrict__ out, int t, int m, int n, int k,
-           int k_chunk) {
-  const int f = blockIdx.z % t;      // batch entry
-  const int split = blockIdx.z / t;  // reduction chunk
-  const int k_begin = split * k_chunk;
-  const int k_end = min(k, k_begin + k_chunk);
-  tile_64x64(a + (size_t)f * m * k, b + (size_t)f * k * n,
-             out + (size_t)blockIdx.z * m * n, m, n, k, k_begin, k_end,
-             blockIdx.y * kBM, blockIdx.x * kBN);
-}
-
-__global__ void sum_splits(const float* __restrict__ parts,
-                           float* __restrict__ out, size_t len, int splits) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int j = 0; j < splits; ++j) s += parts[(size_t)j * len + i];
-    out[i] = s;
-  }
-}
+};
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `scratch` holds splits * t * m * n floats when splits > 1 (unused else).
+// The plan (kernels/_plan.py::gemm_plan) gives the tile (tile_m x tile_n),
+// `splits` and `chunk` (reduction indices per split, whole slabs);
+// `scratch` holds splits * t * m * n floats when the plan sums the splits
+// through it, and is null when it sums them in a cluster (or splits = 1).
 extern "C" int repro_gemm_f32(const float* a, const float* b, float* out,
                               float* scratch, int t, int m, int n, int k,
-                              int splits, cudaStream_t stream) {
-  if (t <= 0 || m <= 0 || n <= 0 || k < 0 || splits <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (splits > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const int k_chunk = ((k + splits - 1) / splits + kBK - 1) / kBK * kBK;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, t * splits);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  gemm_tiled<<<grid, kThreads, 0, stream>>>(
-      a, b, splits > 1 ? scratch : out, t, m, n, k, k_chunk);
-  if (splits > 1) {
-    const size_t len = (size_t)t * m * n;
-    const size_t blocks = (len + 255) / 256 < 4096 ? (len + 255) / 256 : 4096;
-    sum_splits<<<(int)blocks, 256, 0, stream>>>(scratch, out, len, splits);
-  }
-  return (int)cudaGetLastError();
+                              int tile_m, int tile_n, int splits, int chunk,
+                              cudaStream_t stream) {
+  const tile::Problem g{t, m, n, k, chunk, 1, nullptr, 0};
+  const bool vec_b = n % 4 == 0 && reinterpret_cast<size_t>(b) % 16 == 0;
+  if (vec_b)
+    return tile::launch_tile<GemmOp<true>>(tile_m, tile_n,
+                                           GemmOp<true>::Params{g, a, b},
+                                           out, scratch, splits, stream);
+  return tile::launch_tile<GemmOp<false>>(tile_m, tile_n,
+                                          GemmOp<false>::Params{g, a, b},
+                                          out, scratch, splits, stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

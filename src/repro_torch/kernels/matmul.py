@@ -14,41 +14,29 @@ import torch
 
 from repro_torch.device import forward_only
 from repro_torch.kernels import _build
-
-# a reduction this long over this few output tiles is split (see
-# csrc/gemm.cu): aim at two blocks per SM of the H100's 132
-_SPLIT_MIN_BLOCKS = 264
-_SPLIT_MIN_CHUNK = 512
-
-
-def split_count(t: int, m: int, n: int, k: int) -> int:
-    """How many chunks the GEMM kernels split a ``[t, m, k] @ [t, k, n]``
-    reduction into: 1 unless the 64x64 output tiles are too few to fill
-    the card and K is long."""
-    blocks = t * -(-m // 64) * -(-n // 64)
-    if blocks >= _SPLIT_MIN_BLOCKS or k < 2 * _SPLIT_MIN_CHUNK:
-        return 1
-    return max(1, min(-(-_SPLIT_MIN_BLOCKS // blocks),
-                      k // _SPLIT_MIN_CHUNK))
+from repro_torch.kernels._plan import gemm_plan, sm_count
 
 
 def launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch ``repro_gemm_f32`` on checked CUDA operands, ``[M,K] @
-    [K,N]`` as one batch entry or ``[T,M,K] @ [T,K,N]``, with
-    split-reduction scratch where :func:`split_count` asks for it."""
+    [K,N]`` as one batch entry or ``[T,M,K] @ [T,K,N]``, with the tile
+    and the split reduction of :func:`~repro_torch.kernels._plan.gemm_plan`
+    (and its scratch)."""
     lib = _build.load()
-    t = a.shape[0] if a.dim() == 3 else 1
-    m, k = a.shape[-2:]
     n = b.shape[-1]
-    splits = split_count(t, m, n, k)
-    shape = a.shape[:-2] + (m, n)
-    out = torch.empty(shape, dtype=a.dtype, device=a.device)
-    scratch = (torch.empty((splits,) + shape, dtype=a.dtype, device=a.device)
-               if splits > 1 else None)
+    if a.dim() == 3:
+        t, m, k = a.shape
+        out = a.new_empty(t, m, n)
+    else:
+        t, (m, k) = 1, a.shape
+        out = a.new_empty(m, n)
+    plan = gemm_plan(t, m, n, k, sm_count(a.get_device()))
+    scratch = a.new_empty(plan.scratch) if plan.scratch else None
     _build.check(lib, lib.repro_gemm_f32(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
-        t, m, n, k, splits, _build.stream_handle(a)), "gemm")
+        t, m, n, k, *plan.tile, plan.splits, plan.chunk,
+        _build.stream_handle(a)), "gemm")
     return out
 
 
@@ -67,9 +55,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
     if x.device != w.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
-    if x.device.type == "cpu":
-        return matmul_plain(x, w)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return matmul_plain(x, w)
         raise ValueError(f"matmul runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"the CUDA matmul takes float32, got {x.dtype} "

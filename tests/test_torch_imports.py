@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or the
+JAX package ``repro``."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ pytest.importorskip("torch")
 
 _ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [_ROOT / "chip_smoke.py"]
+    + [_ROOT / "chip_smoke.py"] + sorted((_ROOT / "tools").glob("*.py"))
 
 
 def _imported_roots(path: Path) -> set:

@@ -176,3 +176,99 @@ def test_cuda_tensor_without_card_raises_not_falls_back():
     with pytest.raises(ValueError, match="cuda or cpu"):
         matmul(torch.empty(2, 2, device="meta"),
                torch.empty(2, 2, device="meta"))
+
+
+def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a ``csrc/*.cuh`` header names a new library, so a build
+    made before the edit is not loaded after it."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "op.cu").write_text('#include "core.cuh"\n')
+    header = tmp_path / "core.cuh"
+    header.write_text("// the tile core\n")
+    before = _build.library_path()
+    assert _build.library_path() == before
+    header.write_text("// the tile core, edited\n")
+    assert _build.library_path() != before
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of the tile GEMM core, at every shape chip_smoke.py's
+# kernel phase gives the two wrappers (batch 64, the CNN's 8 layers)
+# ---------------------------------------------------------------------------
+
+SMS = 132  # the H100's SMs
+LAYERS = [(3, 64, 56), (64, 64, 56), (64, 128, 28), (128, 128, 28),
+          (128, 256, 14), (256, 256, 14), (256, 512, 7), (512, 512, 7)]
+
+
+def _smoke_plan_cases():
+    """(id, kind, (t, m, n, r)) of every kernel call in chip_smoke.py's
+    kernel phase, plus ragged and unaligned cases."""
+    b, cases = 64, []
+    for c, k, h in LAYERS:
+        cases.append((f"conv SAME {c}->{k} H={h}", "conv",
+                      (1, b * h * h, k, 9 * c)))
+        if c % 8 == 0:
+            cases.append((f"conv fwd {c}->{k} H={h}", "conv",
+                          (1, b * h * h, k, 9 * c)))
+            cases.append((f"conv dIn {c}->{k} H={h}", "conv",
+                          (1, b * (h + 2) ** 2, c, 9 * k)))
+        cases.append((f"conv dKer {c}->{k} H={h}", "dker",
+                       (1, 9 * c, k, b * h * h)))
+        if c % 8 == 0:
+            p, pin = b * (-(-h // 2)) ** 2, b * (-(-(h + 2) // 2)) ** 2
+            cases += [(f"wino fwd {c}->{k} H={h}", "gemm", (16, p, k, c)),
+                      (f"wino dIn fwd {c}->{k} H={h}", "gemm",
+                       (16, pin, c, k)),
+                      (f"wino dv {c}->{k} H={h}", "gemm", (16, p, c, k)),
+                      (f"wino du {c}->{k} H={h}", "gemm", (16, c, k, p))]
+    cases += [("head fwd", "head", (1, b, 1000, 512)),
+              ("head dX", "head", (1, b, 512, 1000)),
+              ("head dW", "gemm", (1, 512, 1000, b)),
+              ("matmul ragged", "gemm", (1, 65, 1000, 520)),
+              ("im2col dKer", "dker", (1, 576, 64, b * 56 * 56)),
+              ("matmul unaligned", "gemm", (1, 64, 1000, 1001)),
+              ("tiny", "gemm", (1, 1, 7, 3)),
+              ("conv ragged K", "conv", (1, 2 * 18 * 18, 20, 16 * 9)),
+              ("empty reduction", "gemm", (1, 20, 12, 0))]
+    return cases
+
+
+PLAN_CASES = _smoke_plan_cases()
+
+
+@pytest.mark.parametrize("kind,shape", [c[1:] for c in PLAN_CASES],
+                         ids=[c[0] for c in PLAN_CASES])
+def test_gemm_plan_covers_the_reduction_and_fills_the_card(kind, shape):
+    from repro_torch.kernels import _plan
+
+    t, m, n, r = shape
+    plan = _plan.gemm_plan(t, m, n, r, sms=SMS)
+    assert plan.slab == _plan.TILES[plan.tile]
+    tm, tn = plan.tile
+    # the first tile that makes a wave over the card, else the smallest
+    waves = [tile for tile in _plan.TILES
+             if m >= tile[0] and n >= tile[1]
+             and t * -(-m // tile[0]) * -(-n // tile[1]) >= SMS]
+    assert plan.tile == (waves[0] if waves else (64, 64))
+    # whole slabs, every chunk non-empty, the last one ending at r
+    assert plan.chunk % plan.slab == 0 and plan.chunk > 0
+    assert plan.splits * plan.chunk >= r
+    assert plan.splits == 1 or (plan.splits - 1) * plan.chunk < r
+    tiles = t * -(-m // tm) * -(-n // tn)
+    assert plan.grid == (-(-m // tm), -(-n // tn), t * plan.splits)
+    assert plan.grid[0] <= 2 ** 31 - 1
+    assert plan.grid[1] <= _plan.GRID_YZ_MAX
+    assert plan.grid[2] <= _plan.GRID_YZ_MAX
+    # up to MAX_CLUSTER splits sum in a cluster, more through scratch
+    assert plan.scratch == (t * m * n * plan.splits
+                            if plan.splits > _plan.MAX_CLUSTER else 0)
+    blocks = tiles * plan.splits
+    if tiles >= _plan.BLOCKS_PER_SM * SMS:  # the card is full: no split
+        assert plan.splits == 1
+    if kind == "dker":
+        assert blocks >= SMS
+    if kind == "head":  # more blocks than the 16 and 8 tiles unsplit
+        assert blocks > {1000: 16, 512: 8}[n]

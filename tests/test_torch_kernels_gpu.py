@@ -19,8 +19,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d, conv2d_plain  # noqa: E402
-from repro_torch.kernels.matmul import (matmul, matmul_plain,  # noqa: E402
-                                        split_count)
+from repro_torch.kernels._plan import gemm_plan  # noqa: E402
+from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
 from repro_torch.kernels.winograd import wino_gemm, wino_gemm_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -38,8 +38,11 @@ def cuda_device():
     return resolve_device()
 
 
+# (64, 1001, 1000): rows of A not 16-byte aligned; (33, 1000, 1001): nor
+# those of B, which then takes 4-byte copies instead of 16-byte ones
 @pytest.mark.parametrize("m,k,n", [(64, 512, 1000), (65, 520, 1000),
-                                   (1, 3, 7), (128, 384, 256)])
+                                   (1, 3, 7), (128, 384, 256),
+                                   (64, 1001, 1000), (33, 1000, 1001)])
 def test_matmul_kernel_matches_plain(cuda_device, m, k, n):
     x = torch.from_numpy(_normal(7, m, k)).to(cuda_device)
     w = torch.from_numpy(_normal(8, k, n)).to(cuda_device)
@@ -86,10 +89,11 @@ def test_conv2d_kernel_matches_plain(cuda_device, n, c, hw, k, ks, padding):
 # the training backward's shapes (N = 2, 3x3): dIn is a VALID conv of the
 # cotangent padded by 2 against the flipped kernel, dKer the N/C-transposed
 # VALID conv whose "kernel" is the cotangent -- as wide as the output
-# plane (56 on the CNN's path; a window above 14x14 overflowed the
-# kernel's shared memory before the taps were staged in chunks)
+# plane (56 on the CNN's path) over a 3x3 output; the first layer's dKer
+# (x' = [3, 2, 58, 58], kernel [64, 2, 56, 56]) and ragged K (24)
+# included
 @pytest.mark.parametrize("c,k,h", [(64, 64, 56), (16, 24, 20), (64, 32, 7),
-                                   (8, 8, 15)])
+                                   (8, 8, 15), (3, 64, 56), (64, 24, 28)])
 def test_conv2d_kernel_at_backward_shapes(cuda_device, c, k, h):
     x = torch.from_numpy(_normal(11, 2, c, h + 2, h + 2)).to(cuda_device)
     g = torch.from_numpy(_normal(12, 2, k, h, h)).to(cuda_device)
@@ -125,9 +129,32 @@ def test_wino_gemm_kernel_matches_plain(cuda_device, t, p, c, k):
 
 
 def test_gemm_splits_only_long_thin_reductions():
-    assert split_count(16, 64, 64, 50176) > 1
-    assert split_count(16, 50176, 64, 64) == 1
-    assert split_count(16, 64, 64, 64) == 1
+    assert gemm_plan(16, 64, 64, 50176).splits > 1
+    assert gemm_plan(16, 50176, 64, 64).splits == 1
+    assert gemm_plan(16, 64, 64, 64).splits == 1
+
+
+# a split reduction sums its partial tiles in split order, with no
+# atomics: two launches on the same operands agree to the bit
+def test_split_launches_are_bit_equal(cuda_device):
+    from repro_torch.kernels._plan import sm_count
+
+    sms = sm_count(torch.cuda.current_device())
+    x = torch.from_numpy(_normal(20, 64, 16, 30, 30)).to(cuda_device)
+    g = torch.from_numpy(_normal(21, 32, 16, 28, 28)).to(cuda_device)
+    a = torch.from_numpy(_normal(22, 64, 1000)).to(cuda_device)
+    b = torch.from_numpy(_normal(23, 1000, 512)).to(cuda_device)
+    # the head's forward: few enough splits to be summed in a cluster
+    a2 = torch.from_numpy(_normal(24, 64, 512)).to(cuda_device)
+    b2 = torch.from_numpy(_normal(25, 512, 1000)).to(cuda_device)
+    assert gemm_plan(1, 64 * 9, 32, 16 * 28 * 28, sms=sms).splits > 1
+    assert gemm_plan(1, 64, 512, 1000, sms=sms).splits > 1
+    assert gemm_plan(1, 64, 1000, 512, sms=sms).splits > 1
+    for run in (lambda: conv2d(x, g, padding="VALID"),
+                lambda: matmul(a, b), lambda: matmul(a2, b2)):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_kernel_refuses_non_contiguous_and_wrong_dtype(cuda_device):
