@@ -19,7 +19,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    larger) and the share of that bound the kernel reaches; the kernel
    and the library call are also timed queued behind a spin of the card
    (device only) and on the host alone (the launch path); the conv's
-   sums are also given per direction (fwd, dIn, dKer);
+   sums are also given per direction (fwd, dIn, dKer); then, the same
+   way, each kernel at the shapes ResNet-50's layer table
+   (``core.problem.resnet50_layers(batch=64)``, forward, SAME) gives it:
+   the direct conv at the 1x1 and 3x3 layers, Winograd's tile GEMM at
+   the 3x3 layers, the tiled GEMM at ``conv1``'s im2col product
+   ``[802816,147]@[147,64]``;
 4. inference at full width: the repro CNN at ResNet-50's 3x3 stage
    widths (channels 64..512, 3 input channels, 1000 classes, batch 64,
    56x56) answers batches of images through ``forward_cnn(dist_mesh=...)``
@@ -43,7 +48,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``_update_errs``): its loss against a separate pass at the same
    parameters, and its new parameters and moments against that AdamW
    applied to the card's state before the step and that pass's
-   gradients.
+   gradients.  Then the static mode once more with ``save_gathered=True``
+   (``static_sg``: native differentiation on the saved gathers), held
+   to the same gates against the static mode, with the same launches
+   but the dKer of the C = 3 layer (cuDNN's backward of its library
+   forward).  Every mode prints its peak of
+   ``torch.cuda.max_memory_allocated`` over the timed steps beside
+   ``cnn_train_mem_elems(...)["peak"] * 4``;
+6. warm: ``kernels.autotune.warm(batch=64, refresh=True)`` against a
+   plan table in a temporary directory; each layer's winner and every
+   candidate's ms, every hand-written candidate timed, the winners
+   persisted, and all three kernels launched;
+7. synthesis, on the host, printed only: the grid, model cost and wire
+   ``core.sharding_synthesis.synthesize_cnn_grid`` picks for the smoke
+   CNN over 1, 2, 4 and 8 devices (``allgather``, ``ring2``; without and
+   with a memory cap that excludes the uncapped winner), and the grid
+   ``synthesize_dist_grid`` picks for each ResNet-50 layer at 4 devices.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -91,6 +111,7 @@ UPDATE_MASK = 1e-3
 PARAM_LR_TOL = 1e-3
 MOMENT_RTOL = 1e-5
 MODES = ("static", "winograd", "tuned")
+SG_MODE = "static_sg"   # mode static with save_gathered=True
 
 
 def check(cond: bool, msg: str) -> None:
@@ -318,6 +339,148 @@ def kernel_phase(device):
     return rows, path, conv_infer
 
 
+def resnet50_phase(device):
+    """Each kernel at the shapes ResNet-50's layer table
+    (``core.problem.resnet50_layers(batch=64)``, forward, SAME) gives it:
+    the direct conv at the stride-1 layers (1x1 and 3x3), Winograd's tile
+    GEMM at the 3x3 layers, and the tiled GEMM at ``conv1``'s im2col
+    product (7x7/2, C = 3).  Returns the rows per kernel."""
+    from repro_torch.core.problem import resnet50_layers
+    from repro_torch.kernels.conv2d import conv2d, conv2d_plain
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.winograd import (wino_gemm, wino_gemm_einsum,
+                                              wino_gemm_plain)
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    rows = {"conv2d": [], "matmul": [], "wino_gemm": []}
+    for name, p in resnet50_layers(batch=BATCH).items():
+        n, c, k, h, w, r = p.Nb, p.Nc, p.Nk, p.Nh, p.Nw, p.Nr
+        if p.sh == 1:
+            x, wt = rand(n, c, h, w), rand(k, c, r, r)
+            rows["conv2d"].append(compare_kernel(
+                f"resnet50 {name} conv SAME N={n} C={c} K={k} H=W={h} "
+                f"{r}x{r}",
+                lambda a, b: conv2d(a, b, padding="SAME"),
+                lambda a, b: conv2d_plain(a, b, padding="SAME"),
+                lambda a, b, r=r: F.conv2d(a, b, padding=r // 2), (x, wt),
+                float(p.flops()),
+                4.0 * (x.numel() + wt.numel() + n * k * h * w)))
+            del x, wt
+        if r == 3 and p.sh == 1:
+            tiles = n * (-(-h // 2)) * (-(-w // 2))
+            rows["wino_gemm"].append(gemm_row(
+                f"resnet50 {name} wino_gemm [16,{tiles},{c}]@[16,{c},{k}]",
+                wino_gemm, wino_gemm_plain, wino_gemm_einsum,
+                rand(16, tiles, c), rand(16, c, k)))
+        if p.sh > 1:   # conv1's im2col product: patches @ kernel rows
+            m, kk = n * h * w, c * r * r
+            rows["matmul"].append(gemm_row(
+                f"resnet50 {name} im2col matmul [{m},{kk}]@[{kk},{k}]",
+                matmul, matmul_plain, torch.matmul, rand(m, kk),
+                rand(kk, k)))
+    print(json.dumps({"phase": "resnet50", **{
+        kind: {key: sum(r[key] for r in rs)
+               for key in ("kernel_ms", "library_ms", "bound_ms")}
+        for kind, rs in rows.items()}}), flush=True)
+    return rows
+
+
+def warm_phase():
+    """``autotune.warm(batch=64, refresh=True)`` against a plan table in a
+    temporary directory: every layer's winner and every candidate's ms,
+    and the kernels' launches during the pass.  A hand-written candidate
+    that fails on the card propagates out of the tuner."""
+    from repro_torch.core.problem import resnet50_layers
+    from repro_torch.kernels import autotune, ops
+
+    old = os.environ.get(autotune.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "warm_plan.json")
+        os.environ[autotune.CACHE_ENV] = path
+        autotune.plan_cache().reset()
+        _zero_counts()
+        try:
+            t0 = time.perf_counter()
+            table = autotune.warm(batch=BATCH, refresh=True)
+            seconds = time.perf_counter() - t0
+            launches = _launch_counts()
+            with open(path, encoding="utf-8") as f:
+                persisted = json.load(f)["plans"]
+        finally:
+            autotune.plan_cache().reset()
+            if old is None:
+                os.environ.pop(autotune.CACHE_ENV)
+            else:
+                os.environ[autotune.CACHE_ENV] = old
+    for name, p in resnet50_layers(batch=BATCH).items():
+        ent = table[name]
+        x_shape = (p.Nb, p.Nc, p.sh * p.Nh, p.sw * p.Nw)
+        w_shape = (p.Nk, p.Nc, p.Nr, p.Ns)
+        cands = ops.conv_candidates(x_shape, w_shape, (p.sh, p.sw), "SAME")
+        check(set(ent["wall_ms"]) == set(cands)
+              and all(math.isfinite(ent["wall_ms"][c]) for c in cands
+                      if c not in autotune.LIBRARY),
+              f"warm {name}: candidates {cands}, timed {ent['wall_ms']}")
+        check(persisted[ops.conv_key(x_shape, w_shape, torch.float32,
+                                     (p.sh, p.sw), "SAME")]["impl"]
+              == ent["impl"], f"warm {name}: winner not persisted")
+    for name, ent in table.items():
+        print(json.dumps({"phase": "warm", "layer": name,
+                          "winner": ent["impl"],
+                          "wall_ms": ent["wall_ms"]}), flush=True)
+    for name in ("conv2d", "matmul", "wino_gemm"):
+        check(launches[name] > 0, f"warm: kernel {name} was not launched")
+    print(json.dumps({"phase": "warm", "batch": BATCH, "seconds": seconds,
+                      "keys_persisted": len(persisted),
+                      "launches": launches}), flush=True)
+    return launches
+
+
+def _synth(fn, *args, **kw):
+    """A synthesizer's pick, or the reason there is none."""
+    try:
+        c = fn(*args, **kw)
+    except ValueError as err:
+        return {"error": str(err)}
+    return {"grid": list(c.grid), "algo": c.algo,
+            "model_cost": c.model_cost,
+            "wire_elems": c.comm_elems["total"], "mem_elems": c.mem_elems}
+
+
+def synthesis_phase():
+    """What the planner picks, on the host: one grid for the smoke CNN
+    over 1, 2, 4 and 8 devices (``allgather`` and ``ring2``; without a
+    memory cap, then with a cap just below the uncapped winner's peak),
+    and a grid per ResNet-50 layer at 4 devices.  Printed only; the CPU
+    tests hold the planner equal to the JAX package's."""
+    from repro_torch.core.problem import resnet50_layers
+    from repro_torch.core.sharding_synthesis import (synthesize_cnn_grid,
+                                                     synthesize_dist_grid)
+
+    x_shape = (BATCH, IN_CHANNELS, HW, HW)
+    for n in (1, 2, 4, 8):
+        for sched in ("allgather", "ring2"):
+            free = _synth(synthesize_cnn_grid, x_shape, CHANNELS, N_CLASSES,
+                          n, schedule=sched)
+            capped = None if "error" in free else _synth(
+                synthesize_cnn_grid, x_shape, CHANNELS, N_CLASSES, n,
+                schedule=sched, mem_cap_elems=free["mem_elems"] * (1 - 1e-9))
+            print(json.dumps({"phase": "synthesis", "model": "smoke CNN",
+                              "devices": n, "schedule": sched,
+                              "uncapped": free, "capped": capped}),
+                  flush=True)
+    for name, p in resnet50_layers(batch=BATCH).items():
+        print(json.dumps({"phase": "synthesis", "layer": name, "devices": 4,
+                          **_synth(synthesize_dist_grid,
+                                   (p.Nb, p.Nc, p.sh * p.Nh, p.sw * p.Nw),
+                                   (p.Nk, p.Nc, p.Nr, p.Ns), 4,
+                                   stride=(p.sh, p.sw))}), flush=True)
+
+
 def _slice_rank(rank):
     """The full-width forward on a one-rank grid; returns what it saw."""
     from repro_torch.dist.conv2d import make_conv_mesh
@@ -491,10 +654,11 @@ def _pinned_branch(decisions: list, record: bool):
         cnn._bias_relu, cnn._pool_local = saved
 
 
-def _loss_and_grads(params, batch, mesh, decisions=None, record=False):
-    """The step's loss and its gradients (flattened leaves) on the grid;
-    on the branch in ``decisions`` (see :func:`_pinned_branch`) when
-    given."""
+def _loss_and_grads(params, batch, mesh, decisions=None, record=False,
+                    save_gathered=False):
+    """The step's loss and its gradients (flattened leaves) on the grid,
+    by the custom VJPs or natively (``save_gathered``); on the branch in
+    ``decisions`` (see :func:`_pinned_branch`) when given."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.models.cnn import loss_cnn
@@ -504,7 +668,7 @@ def _loss_and_grads(params, batch, mesh, decisions=None, record=False):
     with (_pinned_branch(decisions, record) if decisions is not None
           else contextlib.nullcontext()):
         loss = loss_cnn(pytree.tree_unflatten(leaves, spec), batch,
-                        dist_mesh=mesh)
+                        dist_mesh=mesh, dist_save_gathered=save_gathered)
         grads = torch.autograd.grad(loss, leaves)
     return float(loss.detach()), [g.detach().cpu() for g in grads]
 
@@ -594,20 +758,23 @@ def _zero_counts():
     conv2d.launches = matmul.launches = wino_gemm.launches = 0
 
 
-def _train_mode(params, batch, small, mesh, step, opt, branches, record):
+def _train_mode(params, batch, small, mesh, step, opt, branches, record,
+                save_gathered=False):
     from torch.utils import _pytree as pytree
 
     from repro_torch.dist.train import init_grid_train_state
 
     loss1, grads1 = _loss_and_grads(params, batch, mesh,
-                                    branches["batch"], record)
-    small_loss, small_grads = _loss_and_grads(params, small, mesh,
-                                              branches["small"], record)
+                                    branches["batch"], record, save_gathered)
+    small_loss, small_grads = _loss_and_grads(
+        params, small, mesh, branches["small"], record, save_gathered)
     step(init_grid_train_state(params, opt), batch)  # warm-up (and tuning)
     torch.cuda.synchronize()
 
     _zero_counts()
     states = [init_grid_train_state(params, opt)]
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     losses, step_ms, grad_norms = [], [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -618,16 +785,18 @@ def _train_mode(params, batch, small, mesh, step, opt, branches, record):
         losses.append(float(metrics["loss"]))
         grad_norms.append(float(metrics["grad_norm"]))
     launches = _launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
     check(all(bool(torch.isfinite(t).all())
               for t in pytree.tree_leaves(states[-1].params)),
           "non-finite parameters after the train steps")
-    update = _update_errs(states, losses, batch, mesh, opt)
+    update = _update_errs(states, losses, batch, mesh, opt, save_gathered)
     start = init_grid_train_state(params, opt)
     profile = _profile(lambda: step(start, batch), 1, "steps")
     return {"loss1": loss1, "grads1": grads1, "small_loss": small_loss,
             "small_grads": small_grads, "losses": losses,
             "grad_norms": grad_norms, "step_ms": step_ms,
-            "launches": launches, "update": update, "profile": profile}
+            "launches": launches, "update": update, "profile": profile,
+            "memory": {"base_bytes": base_bytes, "peak_bytes": peak_bytes}}
 
 
 def _adamw_plain(opt, step, p, m, v, g, gnorm):
@@ -643,7 +812,7 @@ def _adamw_plain(opt, step, p, m, v, g, gnorm):
     return p, m, v, g
 
 
-def _update_errs(states, losses, batch, mesh, opt):
+def _update_errs(states, losses, batch, mesh, opt, save_gathered=False):
     """Each timed step against :func:`_adamw_plain` on the CPU: step k's
     loss against a separate pass at the parameters it started from, and
     its new parameters and moments against the plain AdamW applied to
@@ -662,7 +831,8 @@ def _update_errs(states, losses, batch, mesh, opt):
         prev, new = states[k - 1], states[k]
         check(new.opt.step == k, f"optimizer step {new.opt.step} after "
               f"{k} steps")
-        loss, grads = _loss_and_grads(prev.params, batch, mesh)
+        loss, grads = _loss_and_grads(prev.params, batch, mesh,
+                                      save_gathered=save_gathered)
         errs["loss"] = max(errs["loss"], abs(losses[k - 1] - loss)
                            / abs(loss))
         grads = [g.double() for g in grads]
@@ -687,6 +857,7 @@ def _update_errs(states, losses, batch, mesh, opt):
 def _train_rank(rank, cache_dir, device="cuda"):
     from repro_torch.dist.conv2d import make_conv_mesh
     from repro_torch.dist.train import make_grid_train_step
+    from repro_torch.kernels.autotune import autotune_disabled
     from repro_torch.models.cnn import init_cnn
     from repro_torch.train.optim import AdamW
 
@@ -708,6 +879,13 @@ def _train_rank(rank, cache_dir, device="cuda"):
             out[mode] = _train_mode(params, batch, small, mesh, step, opt,
                                     branches, record=mode == "static")
         out[mode]["plan"] = info.get("plan")
+    # the static plan once more, differentiated natively on its saved
+    # gathers (save_gathered=True), on the static mode's branch
+    sg_step = make_grid_train_step(opt, mesh, save_gathered=True)
+    with autotune_disabled():
+        out[SG_MODE] = _train_mode(params, batch, small, mesh, sg_step, opt,
+                                   branches, record=False,
+                                   save_gathered=True)
     out["small_branch"] = branches["small"]
     return out
 
@@ -736,6 +914,7 @@ def _grad_err(got, want):
 
 def train_phase(card):
     from repro_torch.dist.spawn import run_spmd
+    from repro_torch.dist.train import cnn_train_mem_elems
 
     with tempfile.TemporaryDirectory() as cache_dir:
         res = run_spmd(_train_rank, 1, cache_dir)[0]
@@ -745,9 +924,18 @@ def train_phase(card):
     cpu_s = time.perf_counter() - t0
 
     want = {"static": ("conv2d", "matmul"),
-            "winograd": ("wino_gemm", "conv2d", "matmul")}
+            "winograd": ("wino_gemm", "conv2d", "matmul"),
+            SG_MODE: ("conv2d", "matmul")}
     ref = res["static"]
-    for mode in MODES:
+    # the native backward runs the custom one's contractions, except the
+    # dKer of a layer whose forward took the library conv (C % 8 != 0):
+    # there autograd differentiates F.conv2d by cuDNN's own backward
+    lib_layers = sum(1 for c, _, _ in conv_layers() if c % 8)
+    want_sg = dict(ref["launches"],
+                   conv2d=ref["launches"]["conv2d"] - lib_layers * TRAIN_STEPS)
+    check(res[SG_MODE]["launches"] == want_sg,
+          f"save_gathered launches {res[SG_MODE]['launches']} != {want_sg}")
+    for mode in MODES + (SG_MODE,):
         r = res[mode]
         for name in want.get(mode, ()):
             check(r["launches"][name] > 0,
@@ -775,6 +963,15 @@ def train_phase(card):
                    "grad_norms": r["grad_norms"], "step_ms": r["step_ms"],
                    "p50_step_ms": p50, "images_per_s": BATCH / p50 * 1e3,
                    "device_busy_share": r["profile"]["device_busy_share"],
+                   "device_busy_ms": r["profile"]["device_busy_ms"],
+                   "save_gathered": mode == SG_MODE,
+                   # the step's allocations on the card beside the dist
+                   # ops' analytic per-layer peak; printed, not gated
+                   "memory": dict(r["memory"], analytic_dist_peak_bytes=4 *
+                                  cnn_train_mem_elems(
+                                      (BATCH, IN_CHANNELS, HW, HW), CHANNELS,
+                                      N_CLASSES, (1, 1, 1, 1, 1),
+                                      save_gathered=mode == SG_MODE)["peak"]),
                    "launches": r["launches"],
                    "loss_rel_err_vs_static": loss_err,
                    "later_loss_rel_diff_vs_static": later,
@@ -801,7 +998,7 @@ def train_phase(card):
         check(upd["loss"] <= LOSS_RTOL and upd["params_lr"] <= PARAM_LR_TOL
               and upd["moments"] <= MOMENT_RTOL,
               f"train mode {mode}: the steps vs a plain AdamW: {upd}")
-    return {mode: res[mode]["launches"] for mode in MODES}
+    return {mode: res[mode]["launches"] for mode in MODES + (SG_MODE,)}
 
 
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
@@ -862,12 +1059,17 @@ def main() -> int:
     rows, path, conv_infer = kernel_phase(device)
     print(json.dumps({"phase": "kernels", "conv2d_infer_ms": sum(
         r["kernel_ms"] for r in conv_infer)}), flush=True)
+    for name, extra in resnet50_phase(device).items():
+        rows[name] += extra
     infer = slice_phase()
     train = train_phase(card)
+    warm = warm_phase()
+    synthesis_phase()
 
     def by_path(name):
         return {"infer": infer.get(name, 0),
-                **{f"train_{m}": train[m][name] for m in MODES}}
+                **{f"train_{m}": train[m][name] for m in MODES + (SG_MODE,)},
+                "warm": warm[name]}
 
     kernels = [
         kernel_entry("conv2d_direct", "src/repro_torch/kernels/csrc/conv2d.cu",

@@ -27,14 +27,29 @@ buffer once per call (on every rank of the program, sender or not), an
 all-gather ``shard * (g - 1)``, a reduce-scatter ``v * (g - 1) / g``, an
 all-reduce ``2 * v * (g - 1) / g``, over the group of every axis named.
 
-Gradients.  The ops' backward passes are written out (``dist.conv2d``,
-``dist.matmul``, ``dist.halo``); between ops, the glue's collectives
-differentiate by one convention: a tensor replicated over ranks has its
-complete cotangent on every rank.  So :func:`psum`'s backward is the
-identity, :func:`unshard` (an all-gather) transposes to a slice, and
-:func:`shard` of a replicated tensor transposes to a gather of the
-gradient shards (after a psum over the axes whose ranks each hold only a
-partial sum, when the caller names them).
+Gradients.  The ops' custom backward passes are written out
+(``dist.conv2d``, ``dist.matmul``, ``dist.halo``); between ops, the
+glue's collectives differentiate by one convention: a tensor replicated
+over ranks has its complete cotangent on every rank.  So :func:`psum`'s
+backward is the identity, :func:`unshard` (an all-gather) transposes to a
+slice, and :func:`shard` of a replicated tensor transposes to a gather of
+the gradient shards (after a psum over the axes whose ranks each hold
+only a partial sum, when the caller names them).
+
+The ops' native differentiation (``save_gathered=True``) runs autograd
+through the forward schedule itself, so the collectives it calls carry
+their own transposes, as JAX's do: :func:`ppermute` transposes to the
+inverse permutation (zeros where no pair targets a rank), so the rings
+built on it (:func:`ring_reduce`, :func:`ring_zip`,
+:func:`ring_all_gather`) differentiate through it; :func:`all_gather`
+transposes to :func:`psum_scatter`; :func:`psum_native` all-reduces
+its cotangent (JAX's transpose of a psum whose result leaves the op
+replicated); :func:`pvary` is the identity whose transpose psums the
+cotangent (a rank-invariant operand meeting rank-varying ones).  Each
+records its backward wire under ``bwd_tag``, the name of the term of
+``*_train_comm_elems`` it pays.  These forms take the autograd path only
+when their input requires grad with grad mode on, which never holds
+inside the custom backward passes' Functions.
 """
 
 from __future__ import annotations
@@ -212,12 +227,33 @@ def unshard(t: torch.Tensor, mesh: DeviceMesh, spec, *,
 # Accounted collective wrappers
 # --------------------------------------------------------------------------
 
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm, tag, bwd_tag):
+        ctx.args = (mesh, axis, [(d, s) for s, d in perm], bwd_tag)
+        return _ppermute(x, mesh, axis, perm, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, inverse, bwd_tag = ctx.args
+        return (_ppermute(g, mesh, axis, inverse, bwd_tag),
+                None, None, None, None, None)
+
+
 def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis: str, perm, *,
-             tag: str = "") -> torch.Tensor:
+             tag: str = "", bwd_tag: str = "") -> torch.Tensor:
     """Send ``x`` along the ``(src, dst)`` pairs of ``perm`` (axis
     coordinates); returns what this rank received, zeros where no pair
     targets it -- JAX's zero fill.  Only ranks named in ``perm`` post a
-    send or a receive, so a partial permutation is safe."""
+    send or a receive, so a partial permutation is safe.
+    Differentiable: the backward sends the cotangent along the inverted
+    pairs (tag ``bwd_tag``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Ppermute.apply(x, mesh, axis, perm, tag, bwd_tag)
+    return _ppermute(x, mesh, axis, perm, tag)
+
+
+def _ppermute(x, mesh, axis, perm, tag):
     _note("collective-permute", axis, tag, x.numel())
     me = axis_index(mesh, axis)
     group = mesh.get_group(axis)
@@ -290,6 +326,61 @@ def psum(x: torch.Tensor, mesh: DeviceMesh, axes, *,
     return _psum(x, mesh, axes, tag)
 
 
+class _PsumNative(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, tag, bwd_tag):
+        ctx.args = (mesh, axes, bwd_tag)
+        return _psum(x, mesh, axes, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, bwd_tag = ctx.args
+        size = math.prod(axis_size(mesh, a) for a in axes)
+        return _psum(g, mesh, axes, bwd_tag) / size, None, None, None, None
+
+
+def psum_native(x: torch.Tensor, mesh: DeviceMesh, axes, *, tag: str = "",
+                bwd_tag: str = "") -> torch.Tensor:
+    """All-reduce (sum) over ``axes`` whose backward all-reduces the
+    cotangent too (tag ``bwd_tag``): the transpose JAX's native
+    differentiation takes for the partial-sum reduction at the end of an
+    op whose output is replicated over ``axes``.  JAX divides the
+    replicated output's cotangent by the axes' size at the op boundary
+    and transposes the psum to a psum; here the cotangent arrives
+    complete on every rank (the module's convention), so the backward is
+    that psum over the size -- the same arithmetic and the same wire."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PsumNative.apply(x, mesh, axes, tag, bwd_tag)
+    return _psum(x, mesh, axes, tag)
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, bwd_tag):
+        ctx.args = (mesh, axes, bwd_tag)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, bwd_tag = ctx.args
+        return _psum(g, mesh, axes, bwd_tag), None, None, None
+
+
+def pvary(x: torch.Tensor, mesh: DeviceMesh, axes, *,
+          bwd_tag: str = "") -> torch.Tensor:
+    """The identity, whose backward all-reduces the cotangent over
+    ``axes`` (tag ``bwd_tag``): ``x`` is the same on every rank of those
+    axes and each rank's use of it contributes part of its gradient --
+    JAX's ``pvary``, and its ``shard_map``'s psum of an input cotangent
+    over the mesh axes the input's spec leaves out."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if torch.is_grad_enabled() and x.requires_grad and \
+            _live_axes(mesh, axes):
+        return _Pvary.apply(x, mesh, axes, bwd_tag)
+    return x
+
+
 def pmean(x: torch.Tensor, mesh: DeviceMesh, axes, *,
           tag: str = "") -> torch.Tensor:
     """All-reduce mean over one mesh axis or a tuple of them."""
@@ -324,10 +415,31 @@ def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
                        chunk).contiguous()
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, tag, bwd_tag):
+        ctx.args = (mesh, axis, dim, bwd_tag)
+        return _all_gather(x, mesh, axis, dim, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, bwd_tag = ctx.args
+        return (psum_scatter(g, mesh, axis, dim=dim, tag=bwd_tag),
+                None, None, None, None, None)
+
+
 def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
-               tag: str = "") -> torch.Tensor:
+               tag: str = "", bwd_tag: str = "") -> torch.Tensor:
     """Shards of every rank on ``axis`` concatenated along ``dim`` in
-    axis order (``lax.all_gather(..., tiled=True)``)."""
+    axis order (``lax.all_gather(..., tiled=True)``).  Differentiable:
+    the backward reduce-scatters the cotangent (:func:`psum_scatter`,
+    tag ``bwd_tag``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(x, mesh, axis, dim, tag, bwd_tag)
+    return _all_gather(x, mesh, axis, dim, tag)
+
+
+def _all_gather(x, mesh, axis, dim, tag):
     g = axis_size(mesh, axis)
     _note("all-gather", axis, tag, x.numel() * (g - 1))
     x = x.contiguous()
@@ -340,24 +452,27 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
 # Ring schedules
 # --------------------------------------------------------------------------
 
-def ring_reduce(x, mesh: DeviceMesh, axis: str, body, init):
+def ring_reduce(x, mesh: DeviceMesh, axis: str, body, init, *,
+                bwd_tag: str = ""):
     """Rotate shards of ``x`` around the ``axis`` ring and fold them:
     ``acc = body(acc, src, shard)`` once per rank, where ``src`` is the
     coordinate whose shard has just arrived.  One rotating buffer is live
-    at a time."""
+    at a time.  Differentiable through :func:`ppermute` (backward tag
+    ``bwd_tag``)."""
     g = axis_size(mesh, axis)
     me = axis_index(mesh, axis)
     perm = [(i, (i + 1) % g) for i in range(g)]
     acc = body(init, me, x)
     cur = x
     for step in range(1, g):
-        cur = ppermute(cur, mesh, axis, perm, tag="ring_reduce")
+        cur = ppermute(cur, mesh, axis, perm, tag="ring_reduce",
+                       bwd_tag=bwd_tag)
         acc = body(acc, (me - step) % g, cur)
     return acc
 
 
 def ring_zip(a, axis_a: str, b, axis_b: str, mesh: DeviceMesh, body,
-             init=None):
+             init=None, *, bwd_tags=("", "")):
     """Rotate ``a`` around ``axis_a`` and ``b`` around ``axis_b`` in
     lockstep and fold the co-resident pieces:
 
@@ -366,7 +481,8 @@ def ring_zip(a, axis_a: str, b, axis_b: str, mesh: DeviceMesh, body,
     once per step for ``max(ga, gb)`` steps.  A ring of size 1 never
     rotates.  Ring sizes must be equal or trivial: with ``1 < ga < gb``
     the shorter ring would stop mid-zip and ``src`` would no longer name
-    the resident piece."""
+    the resident piece.  Differentiable through :func:`ppermute`
+    (backward tags ``bwd_tags`` for ``a`` and ``b``)."""
     ga, gb = axis_size(mesh, axis_a), axis_size(mesh, axis_b)
     if not (ga == gb or ga == 1 or gb == 1):
         raise ValueError(f"ring_zip needs equal or trivial ring sizes, "
@@ -380,9 +496,11 @@ def ring_zip(a, axis_a: str, b, axis_b: str, mesh: DeviceMesh, body,
         acc = body(acc, t, (ia - t) % ga, cur_a, (ib - t) % gb, cur_b)
         if t < steps - 1:
             if t < ga - 1:
-                cur_a = ppermute(cur_a, mesh, axis_a, perm_a, tag="ring_zip")
+                cur_a = ppermute(cur_a, mesh, axis_a, perm_a,
+                                 tag="ring_zip", bwd_tag=bwd_tags[0])
             if t < gb - 1:
-                cur_b = ppermute(cur_b, mesh, axis_b, perm_b, tag="ring_zip")
+                cur_b = ppermute(cur_b, mesh, axis_b, perm_b,
+                                 tag="ring_zip", bwd_tag=bwd_tags[1])
     return acc
 
 
@@ -393,8 +511,11 @@ def stream_elems(g: int, unit: float) -> float:
     return min(2, g - 1) * unit if g > 1 else 0.0
 
 
-def ring_all_gather(x, mesh: DeviceMesh, axis: str, *, dim: int):
-    """All-gather ``x`` over ``axis`` via a neighbour ring."""
+def ring_all_gather(x, mesh: DeviceMesh, axis: str, *, dim: int,
+                    bwd_tag: str = ""):
+    """All-gather ``x`` over ``axis`` via a neighbour ring;
+    differentiable (its backward is a ring reduce-scatter by the inverse
+    permutations, tag ``bwd_tag``)."""
     g = axis_size(mesh, axis)
     if g == 1:
         return x
@@ -407,17 +528,21 @@ def ring_all_gather(x, mesh: DeviceMesh, axis: str, *, dim: int):
         return acc
 
     return ring_reduce(x, mesh, axis, place,
-                       torch.empty(shape, dtype=x.dtype, device=x.device))
+                       torch.empty(shape, dtype=x.dtype, device=x.device),
+                       bwd_tag=bwd_tag)
 
 
-def gather_axis(x, mesh: DeviceMesh, axis: str, *, dim: int, schedule: str):
-    """Dispatch between the collective and ring gathers."""
+def gather_axis(x, mesh: DeviceMesh, axis: str, *, dim: int, schedule: str,
+                bwd_tag: str = ""):
+    """Dispatch between the collective and ring gathers (both
+    differentiable, backward tag ``bwd_tag``)."""
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, "
                          f"got {schedule!r}")
     if schedule in ("ring", "ring2"):
-        return ring_all_gather(x, mesh, axis, dim=dim)
-    return all_gather(x, mesh, axis, dim=dim, tag="gather_axis")
+        return ring_all_gather(x, mesh, axis, dim=dim, bwd_tag=bwd_tag)
+    return all_gather(x, mesh, axis, dim=dim, tag="gather_axis",
+                      bwd_tag=bwd_tag)
 
 
 def ring_scatter_reduce(mesh: DeviceMesh, axis: str, produce):

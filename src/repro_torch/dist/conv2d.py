@@ -39,9 +39,25 @@ gather to a b-axis reduce-scatter of dKer (after a psum over the spatial
 axes, which replicate Ker), the halo exchange to
 :func:`halo.halo_accumulate_1d`; ``ring2`` streams both gradients around
 their rings (:func:`collectives.ring_scatter_reduce`).  Every local
-contraction, forward and backward, goes through ``kernels.ops``.  The
-native differentiation with saved gathered residuals
-(``save_gathered=True``) is a later slice.
+contraction, forward and backward, goes through ``kernels.ops``.
+
+``save_gathered=True`` differentiates the forward schedule natively
+instead (the JAX package's ``_conv2d_raw``): autograd runs through the
+forward's own collectives, whose transposes ``dist.collectives``
+carries -- each gather (collective or ring) to a
+reduce-scatter of its operand's gradient (``rs_in`` / ``rs_ker``), the
+c-axis all-reduce to an all-reduce of the Out cotangent
+(``psum_out_bwd``: the native transpose does not know the cotangent is
+replicated), Ker's use on every spatial rank to a psum of dKer over h
+and w (``psum_ker_spatial``, on the gathered kernel as in the custom
+backward, on the chunk for ``ring2``), and the halo exchange to
+:func:`halo.halo_accumulate_1d` (``halo_acc``) through the halo's own
+Function.  The local contractions differentiate through their
+``kernels.ops`` Functions, so the hand-written kernels run in the
+backward too.  The gathered operands stay alive as autograd's saved
+tensors: no gather is replayed, at the memory
+``conv_train_mem_elems(..., save_gathered=True)`` counts.  The wire is
+``conv_train_comm_elems(..., save_gathered=True)``.
 """
 
 from __future__ import annotations
@@ -55,9 +71,10 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.dist.collectives import (SCHEDULES, axis_index, gather_axis,
                                           make_mesh, mesh_grid, ppermute,
-                                          psum, ring_reduce,
-                                          ring_scatter_reduce, ring_zip,
-                                          scatter_axis, stream_elems)
+                                          psum, psum_native, pvary,
+                                          ring_reduce, ring_scatter_reduce,
+                                          ring_zip, scatter_axis,
+                                          stream_elems)
 from repro_torch.dist.halo import halo_accumulate_1d, halo_exchange_1d
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import pad_amounts as _pad_amounts
@@ -68,10 +85,6 @@ KER_SPEC = ("k", ("c", "b"), None, None)
 OUT_SPEC = ("b", "k", "h", "w")
 
 Padding = Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]
-
-SAVE_GATHERED_LATER = (
-    "save_gathered=True (native differentiation with saved gathered "
-    "residuals) is a later slice of the port")
 
 
 def make_conv_mesh(grid, *, device=None) -> DeviceMesh:
@@ -172,13 +185,15 @@ def _conv_fwd_ring2(xwin, wl, mesh, *, pb, pk, conv):
         return ring_reduce(
             wl, mesh, "b",
             lambda acc, src, wchunk: _add(
-                acc, conv(xwin.narrow(1, src * cw, cw), wchunk)), None)
+                acc, conv(xwin.narrow(1, src * cw, cw), wchunk)), None,
+            bwd_tag="rs_ker")
     if pb == 1:
         # Ker holds its full C/Pc rows: stream In slabs around the k-ring
         return ring_reduce(
             xwin, mesh, "k",
             lambda acc, src, slab: _add(
-                acc, conv(slab, wl.narrow(1, src * cx, cx))), None)
+                acc, conv(slab, wl.narrow(1, src * cx, cx))), None,
+            bwd_tag="rs_in")
     # Pb == Pk == 2: zip both rings.  Aligned ranks (k == b) see matching
     # c-ranges arrive together every step; misaligned ranks pair each
     # arrival against their own stationary shard instead.  Per rank the
@@ -193,10 +208,15 @@ def _conv_fwd_ring2(xwin, wl, mesh, *, pb, pk, conv):
             acc = _add(acc, conv(xwin, cur_w))
         return acc
 
-    return ring_zip(xwin, "k", wl, "b", mesh, zip_body, None)
+    return ring_zip(xwin, "k", wl, "b", mesh, zip_body, None,
+                    bwd_tags=("rs_in", "rs_ker"))
 
 
 def _local_conv(xl, wl, mesh, *, stride, plans, schedule):
+    """The forward schedule, per rank.  Its collectives are the
+    differentiable forms, so autograd through it is the native
+    differentiation (``save_gathered=True``); inside the custom
+    Function, without grad, they are the plain collectives."""
     pb, ph, pw, pk, pc = mesh_grid(mesh, AXES)
     # halo (interior) / zero pad (global boundary) on the thin C sub-shard,
     # before any gather so boundary traffic is minimal
@@ -205,11 +225,14 @@ def _local_conv(xl, wl, mesh, *, stride, plans, schedule):
     conv = functools.partial(kops.local_conv2d, stride=stride,
                              padding="VALID")
     if schedule == "ring2":
+        # Ker meets every spatial rank's In: its gradient sums over h, w
+        wl = pvary(wl, mesh, ("h", "w"), bwd_tag="psum_ker_spatial")
         out = _conv_fwd_ring2(xl, wl, mesh, pb=pb, pk=pk, conv=conv)
     else:
         # kernel contraction sub-shard gathered over the batch axis
-        wg = gather_axis(wl, mesh, "b", dim=1, schedule=schedule) \
-            if pb > 1 else wl
+        wg = gather_axis(wl, mesh, "b", dim=1, schedule=schedule,
+                         bwd_tag="rs_ker") if pb > 1 else wl
+        wg = pvary(wg, mesh, ("h", "w"), bwd_tag="psum_ker_spatial")
         if pk == 1:
             out = conv(xl, wg)
         elif schedule == "ring":
@@ -219,12 +242,14 @@ def _local_conv(xl, wl, mesh, *, stride, plans, schedule):
             out = ring_reduce(
                 xl, mesh, "k",
                 lambda acc, src, slab: _add(
-                    acc, conv(slab, wg.narrow(1, src * csub, csub))), None)
+                    acc, conv(slab, wg.narrow(1, src * csub, csub))), None,
+                bwd_tag="rs_in")
         else:
-            out = conv(gather_axis(xl, mesh, "k", dim=1, schedule=schedule),
-                       wg)
+            out = conv(gather_axis(xl, mesh, "k", dim=1, schedule=schedule,
+                                   bwd_tag="rs_in"), wg)
     if pc > 1:
-        out = psum(out, mesh, "c", tag="conv_out")
+        out = psum_native(out, mesh, "c", tag="conv_out",
+                          bwd_tag="psum_out_bwd")
     return out
 
 
@@ -452,11 +477,12 @@ def conv2d_distributed(xl: torch.Tensor, wl: torch.Tensor,
     ``xl`` / ``wl`` are this rank's :data:`IN_SPEC` / :data:`KER_SPEC`
     shards (``collectives.shard``); returns its :data:`OUT_SPEC` shard.
     Unsharded, the result matches ``F.conv2d`` with XLA's ``padding``
-    rules.  Differentiable: the backward rematerializes the forward
-    gathers (see the module docstring).  ``schedule="ring2"`` falls back
-    to ``"ring"`` on grids :func:`conv_ring2_supported` rejects."""
-    if save_gathered:
-        raise NotImplementedError(SAVE_GATHERED_LATER)
+    rules.  Differentiable: by default the backward rematerializes the
+    forward gathers; ``save_gathered=True`` differentiates the forward
+    natively, keeping the gathered operands for the backward and paying
+    no gather-replay wire (see the module docstring).
+    ``schedule="ring2"`` falls back to ``"ring"`` on grids
+    :func:`conv_ring2_supported` rejects."""
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}")
     if tuple(mesh.mesh_dim_names or ()) != AXES:
@@ -471,7 +497,8 @@ def conv2d_distributed(xl: torch.Tensor, wl: torch.Tensor,
     w_shape = (k * pk, cw * pc * pb, kh, kw)
     plans = _conv_plans(x_shape, w_shape, grid, tuple(stride), padding)
     schedule = _conv_effective_schedule(schedule, grid)
-    if torch.is_grad_enabled() and (xl.requires_grad or wl.requires_grad):
+    if not save_gathered and torch.is_grad_enabled() and (
+            xl.requires_grad or wl.requires_grad):
         return _Conv2dDistributed.apply(xl, wl, mesh, tuple(stride), plans,
                                         schedule)
     return _local_conv(xl, wl, mesh, stride=tuple(stride), plans=plans,

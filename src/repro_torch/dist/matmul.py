@@ -19,7 +19,12 @@ elsewhere.  :func:`matmul_distributed` is per-rank code on shards, like
 ``dist.conv2d.conv2d_distributed``.  Per-step products go through
 ``kernels.ops.local_matmul``.  Differentiable like the conv: the backward
 replays the gathers (or re-streams, for ``ring2``) and reduce-scatters
-each operand gradient; ``save_gathered=True`` is a later slice.
+each operand gradient; ``save_gathered=True`` differentiates the forward
+schedule natively instead, as ``dist.conv2d`` does -- the gathered
+operands stay saved, each gather transposes to a reduce-scatter
+(``rs_in`` / ``rs_ker``) and the c-axis all-reduce to an all-reduce of
+the Out cotangent (``psum_out_bwd``), the wire of
+``matmul_train_comm_elems(..., save_gathered=True)``.
 """
 
 from __future__ import annotations
@@ -31,11 +36,10 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.dist.collectives import (SCHEDULES, axis_index, gather_axis,
                                           make_mesh, mesh_grid, mesh_view,
-                                          ppermute, psum, ring_reduce,
+                                          ppermute, psum_native, ring_reduce,
                                           ring_scatter_reduce, ring_zip,
                                           scatter_axis, stream_elems)
 from repro_torch.dist.conv2d import AXES as CONV_AXES
-from repro_torch.dist.conv2d import SAVE_GATHERED_LATER
 from repro_torch.kernels import ops as kops
 
 AXES = ("m", "n", "c")
@@ -115,13 +119,15 @@ def _matmul_fwd_ring2(xl, wl, mesh, *, pm, pn, mm):
         return ring_reduce(
             wl, mesh, "m",
             lambda acc, src, wchunk: _add(
-                acc, mm(xl.narrow(1, src * cw, cw), wchunk)), None)
+                acc, mm(xl.narrow(1, src * cw, cw), wchunk)), None,
+            bwd_tag="rs_ker")
     if pm == 1:
         # Ker holds its full C/Pc rows: stream In slabs around n
         return ring_reduce(
             xl, mesh, "n",
             lambda acc, src, slab: _add(
-                acc, mm(slab, wl.narrow(0, src * cx, cx))), None)
+                acc, mm(slab, wl.narrow(0, src * cx, cx))), None,
+            bwd_tag="rs_in")
     # Pm == Pn == 2: zip both rings, own shards cover the misaligned pairs
     nu, mu = axis_index(mesh, "n"), axis_index(mesh, "m")
     aligned = nu == mu
@@ -133,18 +139,21 @@ def _matmul_fwd_ring2(xl, wl, mesh, *, pm, pn, mm):
             acc = _add(acc, mm(xl, cur_w))
         return acc
 
-    return ring_zip(xl, "n", wl, "m", mesh, zip_body, None)
+    return ring_zip(xl, "n", wl, "m", mesh, zip_body, None,
+                    bwd_tags=("rs_in", "rs_ker"))
 
 
 def _local_matmul(xl, wl, mesh, *, schedule):
+    """The forward schedule, per rank, on the differentiable collectives
+    (see ``dist.conv2d._local_conv``)."""
     pm, pn, pc = mesh_grid(mesh, AXES)
     mm = kops.local_matmul
     if schedule == "ring2":
         out = _matmul_fwd_ring2(xl, wl, mesh, pm=pm, pn=pn, mm=mm)
     else:
         # gather In's contraction sub-shard over n -> full C/Pc slab
-        xg = gather_axis(xl, mesh, "n", dim=1, schedule=schedule) \
-            if pn > 1 else xl
+        xg = gather_axis(xl, mesh, "n", dim=1, schedule=schedule,
+                         bwd_tag="rs_in") if pn > 1 else xl
         if pm == 1:
             out = mm(xg, wl)
         elif schedule == "ring":
@@ -155,12 +164,13 @@ def _local_matmul(xl, wl, mesh, *, schedule):
                 wl, mesh, "m",
                 lambda acc, src, wchunk: _add(
                     acc, mm(xg.narrow(1, src * chunk, chunk), wchunk)),
-                None)
+                None, bwd_tag="rs_ker")
         else:
             out = mm(xg, gather_axis(wl, mesh, "m", dim=0,
-                                     schedule=schedule))
+                                     schedule=schedule, bwd_tag="rs_ker"))
     if pc > 1:
-        out = psum(out, mesh, "c", tag="matmul_out")
+        out = psum_native(out, mesh, "c", tag="matmul_out",
+                          bwd_tag="psum_out_bwd")
     return out
 
 
@@ -275,11 +285,11 @@ def matmul_distributed(xl: torch.Tensor, wl: torch.Tensor,
                        save_gathered: bool = False) -> torch.Tensor:
     """``x @ w`` on the 3-axis grid, per rank: ``xl`` / ``wl`` are this
     rank's :data:`X_SPEC` / :data:`W_SPEC` shards; returns its
-    :data:`OUT_SPEC` shard.  Differentiable (the backward rematerializes
-    the gathers).  ``schedule="ring2"`` falls back to ``"ring"`` on grids
+    :data:`OUT_SPEC` shard.  Differentiable: the backward rematerializes
+    the gathers, or with ``save_gathered=True`` autograd differentiates
+    the forward schedule natively on its saved gathers.
+    ``schedule="ring2"`` falls back to ``"ring"`` on grids
     :func:`matmul_ring2_supported` rejects."""
-    if save_gathered:
-        raise NotImplementedError(SAVE_GATHERED_LATER)
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}")
     if tuple(mesh.mesh_dim_names or ()) != AXES:
@@ -292,7 +302,8 @@ def matmul_distributed(xl: torch.Tensor, wl: torch.Tensor,
                          f"@ {tuple(wl.shape)} on grid {grid}")
     _check_matmul_shapes(M, C, N, grid)
     schedule = _matmul_effective_schedule(schedule, grid)
-    if torch.is_grad_enabled() and (xl.requires_grad or wl.requires_grad):
+    if not save_gathered and torch.is_grad_enabled() and (
+            xl.requires_grad or wl.requires_grad):
         return _MatmulDistributed.apply(xl, wl, mesh, schedule)
     return _local_matmul(xl, wl, mesh, schedule=schedule)
 

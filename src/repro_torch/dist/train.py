@@ -18,11 +18,11 @@ top.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.dist.conv2d import (SAVE_GATHERED_LATER, conv_grid_divides,
+from repro_torch.dist.conv2d import (conv_grid_divides,
                                      conv_train_comm_elems,
                                      conv_train_mem_elems)
 from repro_torch.dist.matmul import (matmul_grid_divides,
@@ -38,17 +38,20 @@ def make_grid_train_step(optimizer: AdamW, mesh: DeviceMesh, *,
                          schedule: str = "allgather",
                          save_gathered: bool = False,
                          pool_every: int = 2,
-                         n_microbatches: int = 1) -> Callable:
+                         n_microbatches: int = 1,
+                         loss_fn: Optional[Callable] = None) -> Callable:
     """Train step (``(state, batch) -> (state, metrics)``) for the CNN on
     a 5-axis conv mesh, per rank.
 
     ``schedule`` picks the dist-op schedule (``allgather`` / ``ring`` /
-    ``ring2``); the loss is ``models.cnn.loss_cnn``.
-    ``save_gathered=True`` is a later slice."""
-    if save_gathered:
-        raise NotImplementedError(SAVE_GATHERED_LATER)
-    loss = functools.partial(loss_cnn, pool_every=pool_every,
-                             dist_mesh=mesh, dist_schedule=schedule,
+    ``ring2``); ``save_gathered=True`` trades backward memory for zero
+    gather-replay wire.  ``loss_fn(params, batch, dist_mesh=...,
+    dist_schedule=..., dist_save_gathered=...)`` may be supplied to train
+    a different model through the dist ops; it defaults to
+    ``models.cnn.loss_cnn``."""
+    base = loss_fn if loss_fn is not None else functools.partial(
+        loss_cnn, pool_every=pool_every)
+    loss = functools.partial(base, dist_mesh=mesh, dist_schedule=schedule,
                              dist_save_gathered=save_gathered)
     return make_train_step(loss, optimizer, n_microbatches=n_microbatches)
 

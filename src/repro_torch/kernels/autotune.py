@@ -29,6 +29,10 @@ hand-written candidate has no reason to fail, and losing the race to
 the library would hide the fault.  Every rank of a process group tunes on its own, so
 multi-rank runs that must agree bit for bit pin the plan (tuner off or a
 seeded table).  The candidate menus live in ``kernels.ops``.
+
+:func:`warm` (CLI: ``python -m repro_torch.kernels.autotune [--batch 64]
+[--refresh]``) tunes ResNet-50's layer table and the head's matmul
+shapes once, so that later processes start from a hot plan table.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import json
 import os
 import tempfile
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -220,3 +224,89 @@ def best_of(key: str, candidates: Sequence[Tuple[str, Callable]],
     impl = min(names, key=lambda n: wall_ms[n])  # first-listed wins ties
     _cache.record(key, impl, wall_ms)
     return impl
+
+
+# --------------------------------------------------------------------------
+# CLI: warm the plan table for the canonical workload
+# --------------------------------------------------------------------------
+
+def warm(*, batch: int = 4, refresh: bool = False,
+         layers: Optional[List[str]] = None,
+         device=None) -> Dict[str, dict]:
+    """Autotune the ResNet-50 layer table (each conv at its real stride,
+    SAME padding, batch ``batch``) plus the classifier-head matmul
+    shapes ``(batch, 512, 1000)`` and ``(256, 256, 256)``, returning
+    ``{layer: {"impl": ..., "wall_ms": {candidate: ms}}}``.  The timing
+    operands are drawn on ``device`` (the card unless the caller asks for
+    the CPU) from a seeded generator.  ``refresh`` re-times every key,
+    ignoring persisted winners, for the length of the call; ``layers``
+    picks a subset of the table by name."""
+    from repro_torch.core.problem import resnet50_layers
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import autotune as _canonical
+    from repro_torch.kernels import ops as kops
+
+    # under ``python -m repro_torch.kernels.autotune`` this module is
+    # loaded twice (__main__ and the canonical import kops dispatches
+    # through); read the plan table best_of actually records into
+    cache = _canonical.plan_cache()
+    device = resolve_device(device)
+    dtype = torch.float32
+    items = resnet50_layers(batch=batch).items()
+    if layers is not None:
+        items = [(n, p) for n, p in items if n in layers]
+    old_mode = os.environ.get(MODE_ENV)
+    if refresh:
+        os.environ[MODE_ENV] = "refresh"
+    table: Dict[str, dict] = {}
+    try:
+        for name, p in items:
+            stride = (p.sh, p.sw)
+            # SAME-conv input extents that land on the table's output dims
+            x_shape = (p.Nb, p.Nc, p.sh * p.Nh, p.sw * p.Nw)
+            w_shape = (p.Nk, p.Nc, p.Nr, p.Ns)
+            impl = kops.select_conv_impl(x_shape, w_shape, stride, "SAME",
+                                         dtype=dtype, device=device)
+            ent = cache.lookup(kops.conv_key(x_shape, w_shape, dtype,
+                                             stride, "SAME"))
+            table[name] = {"impl": impl,
+                           "wall_ms": (ent or {}).get("wall_ms", {})}
+        # classifier-head style matmuls
+        for m, c, n in [(batch, 512, 1000), (256, 256, 256)]:
+            impl = kops.select_matmul_impl(m, n, c, dtype=dtype,
+                                           device=device)
+            ent = cache.lookup(kops.matmul_key(m, n, c, dtype))
+            table[f"matmul_{m}x{c}x{n}"] = {
+                "impl": impl, "wall_ms": (ent or {}).get("wall_ms", {})}
+    finally:
+        if old_mode is None:
+            os.environ.pop(MODE_ENV, None)
+        else:
+            os.environ[MODE_ENV] = old_mode
+    return table
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="warm the local-kernel autotune plan cache")
+    ap.add_argument("--refresh", action="store_true",
+                    help="re-time every key, ignoring persisted winners")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--device", default=None,
+                    help="device to time on (default: the card)")
+    args = ap.parse_args(argv)
+    table = warm(batch=args.batch, refresh=args.refresh, device=args.device)
+    for name, ent in table.items():
+        times = ent.get("wall_ms") or {}
+        detail = " ".join(f"{k}={v:.3f}ms" for k, v in sorted(times.items())
+                          if v != float("inf"))
+        print(f"{name}: {ent['impl']}" + (f"  [{detail}]" if detail else ""))
+    from repro_torch.kernels import autotune as _canonical
+    print(f"# plan table: {_canonical.plan_cache().path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -34,7 +34,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import mesh_grid, psum, shard, unshard
 from repro_torch.dist.conv2d import (AXES, IN_SPEC, KER_SPEC,
-                                     SAVE_GATHERED_LATER, conv2d_distributed)
+                                     conv2d_distributed)
 from repro_torch.dist.matmul import (OUT_SPEC as MM_OUT_SPEC, W_SPEC,
                                      matmul_distributed, matmul_grid_divides,
                                      matmul_mesh_from_conv)
@@ -86,7 +86,7 @@ def _features_to_channel_shards(y, mesh, pk: int, pc: int):
     return shard(full, mesh, (None, ("c", "k")) + rest)
 
 
-def _forward_dist(params, x, mesh, *, pool_every, schedule):
+def _forward_dist(params, x, mesh, *, pool_every, schedule, save_gathered):
     pb, ph, pw, pk, pc = mesh_grid(mesh, AXES)
     n_img, _, h, w = x.shape
     xl = shard(x, mesh, IN_SPEC)
@@ -94,7 +94,8 @@ def _forward_dist(params, x, mesh, *, pool_every, schedule):
         if i:
             xl = _features_to_channel_shards(y, mesh, pk, pc)
         y = conv2d_distributed(xl, shard(blk["w"], mesh, KER_SPEC), mesh,
-                               schedule=schedule)
+                               schedule=schedule,
+                               save_gathered=save_gathered)
         y = _bias_relu(y, shard(blk["b"], mesh, ("k",),
                                 grad_psum_axes=("b", "h", "w")))
         if (i + 1) % pool_every == 0:
@@ -115,7 +116,7 @@ def _forward_dist(params, x, mesh, *, pool_every, schedule):
     xm = _features_to_channel_shards(
         shard(feat, mesh, (("h", "w"), None)), mesh, pk, pc)
     out = matmul_distributed(xm, shard(head, mm_mesh, W_SPEC), mm_mesh,
-                             schedule=schedule)
+                             schedule=schedule, save_gathered=save_gathered)
     return unshard(out, mm_mesh, MM_OUT_SPEC)
 
 
@@ -130,12 +131,12 @@ def forward_cnn(params: Dict, x: torch.Tensor, *, pool_every: int = 2,
     on its shards, and gets the global logits back (and, under autograd,
     the full parameter gradients).  ``dist_schedule`` picks the op
     schedule (``allgather`` / ``ring`` / ``ring2``);
-    ``dist_save_gathered=True`` is a later slice."""
-    if dist_save_gathered:
-        raise NotImplementedError(SAVE_GATHERED_LATER)
+    ``dist_save_gathered=True`` differentiates the dist ops natively on
+    their saved gathers instead of replaying them in the backward."""
     if dist_mesh is not None:
         return _forward_dist(params, x, dist_mesh, pool_every=pool_every,
-                             schedule=dist_schedule)
+                             schedule=dist_schedule,
+                             save_gathered=dist_save_gathered)
     for i, blk in enumerate(params["convs"]):
         x = _bias_relu(conv2d_same(x, blk["w"], use_pallas=use_pallas),
                        blk["b"])

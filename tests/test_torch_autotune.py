@@ -327,3 +327,32 @@ def test_selected_dispatch_matches_reference(tuner):
         jops.matmul_key(8, 16, 24, jnp.float32)
     assert ops.wino_gemm_key(32, 8, 16, torch.float32) == \
         jops.wino_gemm_key(32, 8, 16, jnp.float32)
+
+
+def test_warm_tunes_the_layer_table_and_persists(tuner):
+    """``autotune.warm`` on the CPU at batch 1 for one ResNet-50 layer:
+    the table names the layer and the head-style matmuls, each winner is
+    a candidate it timed, and the winners land in the cache file, from
+    which a fresh table reloads them without timing again."""
+    import json
+
+    table = autotune.warm(batch=1, layers=["res5a_2b"], refresh=True,
+                          device="cpu")
+    assert set(table) == {"res5a_2b", "matmul_1x512x1000",
+                          "matmul_256x256x256"}
+    layer = table["res5a_2b"]
+    assert set(layer["wall_ms"]) == {"direct", "winograd", "im2col", "xla"}
+    assert layer["impl"] == min(layer["wall_ms"],
+                                key=layer["wall_ms"].__getitem__)
+    # the [1,512]@[512,1000] head is not a multiple of 8: xla, untimed
+    assert table["matmul_1x512x1000"] == {"impl": "xla", "wall_ms": {}}
+    assert autotune.mode() == "1"   # refresh lasted the call only
+    with open(tuner.path, encoding="utf-8") as f:
+        plans = json.load(f)["plans"]
+    key = ops.conv_key((1, 512, 7, 7), (512, 512, 3, 3), torch.float32,
+                       (1, 1), "SAME")
+    assert plans[key]["impl"] == layer["impl"]
+    assert plans[ops.matmul_key(256, 256, 256, torch.float32)]["impl"] == \
+        table["matmul_256x256x256"]["impl"]
+    tuner.reset()
+    assert autotune.warm(batch=1, layers=["res5a_2b"], device="cpu") == table

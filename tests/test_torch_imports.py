@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, not
 ``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or the
-JAX package ``repro``."""
+JAX package ``repro``.  The planner ``repro_torch.core`` is pure Python:
+importing it pulls in neither torch nor ``torch.distributed``."""
 
 import ast
 import os
@@ -53,3 +54,23 @@ def test_every_port_module_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) == len(names) >= 12
+
+
+def test_core_is_pure_python():
+    """``repro_torch.core`` (the planner) imports no jax, no repro and no
+    torch; its synthesizers import the dist accounting when they run."""
+    assert (_ROOT / "src" / "repro_torch" / "core" / "__init__.py") \
+        in PORT_FILES
+    code = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "jaxlib", "repro", "torch"):
+            sys.modules[blocked] = None  # any import of them now fails
+        import repro_torch.core as core
+        p = core.resnet50_layers(64)["res3a_2b"]
+        print(core.synthesize(p, 64, 2e5).describe())
+    """)
+    env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "grid" in proc.stdout

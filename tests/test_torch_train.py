@@ -537,15 +537,50 @@ def test_microbatched_dense_step_matches_jax():
         assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < 1e-5
 
 
-def test_save_gathered_waits_for_a_later_slice():
-    """Every entry point that takes ``save_gathered`` refuses it alike."""
+def _one_rank_save_gathered(rank):
+    """Every entry point that takes ``save_gathered``, both ways, on a
+    one-rank grid: the conv and matmul gradients, and one train step."""
+    from repro_torch.kernels.autotune import autotune_disabled
     from repro_torch.models import cnn as tcnn
-    x = torch.zeros(1, 8, 4, 4)
-    for call in (
-            lambda: ttrain.make_grid_train_step(toptim.AdamW(), None,
-                                                save_gathered=True),
-            lambda: tconv.conv2d_distributed(x, x, None, save_gathered=True),
-            lambda: tmm.matmul_distributed(x, x, None, save_gathered=True),
-            lambda: tcnn.forward_cnn({}, x, dist_save_gathered=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call()
+
+    inp = _inputs()
+    mesh = tconv.make_conv_mesh((1, 1, 1, 1, 1), device="cpu")
+    mm_mesh = tmm.make_matmul_mesh((1, 1, 1), device="cpu")
+    batch = {"images": torch.from_numpy(inp["images"]),
+             "labels": torch.from_numpy(inp["labels"])}
+    out = {}
+    with autotune_disabled():
+        for sg in (False, True):
+            for name, op, m, x, w in [
+                    ("conv", tconv.conv2d_distributed, mesh, "x", "w"),
+                    ("matmul", tmm.matmul_distributed, mm_mesh, "xm", "wm")]:
+                xl = torch.from_numpy(inp[x]).requires_grad_(True)
+                wl = torch.from_numpy(inp[w]).requires_grad_(True)
+                y = op(xl, wl, m, save_gathered=sg)
+                out[(name, sg)] = torch.autograd.grad(y.square().sum(),
+                                                      (xl, wl))
+            logits = tcnn.forward_cnn(_params(inp), batch["images"],
+                                      dist_mesh=mesh, dist_save_gathered=sg)
+            step = ttrain.make_grid_train_step(toptim.AdamW(lr=LR), mesh,
+                                               save_gathered=sg)
+            state, metrics = step(ttrain.init_grid_train_state(
+                _params(inp), toptim.AdamW(lr=LR)), batch)
+            out[("cnn", sg)] = (logits, metrics["loss"],
+                                *_leaves(state.params))
+    return out
+
+
+def test_save_gathered_waits_for_a_later_slice():
+    """The slice has landed: every entry point that takes
+    ``save_gathered`` accepts it -- ``conv2d_distributed``,
+    ``matmul_distributed``, ``forward_cnn`` and ``make_grid_train_step``
+    -- and agrees with the custom VJP on a one-rank grid (the 8-rank
+    cases against the JAX package are ``tests/test_torch_save_gathered.py``)."""
+    from repro_torch.dist.spawn import run_spmd
+
+    out = run_spmd(_one_rank_save_gathered, 1, device="cpu")[0]
+    for name in ("conv", "matmul", "cnn"):
+        for got, want in zip(out[(name, True)], out[(name, False)]):
+            np.testing.assert_allclose(got.detach().numpy(),
+                                       want.detach().numpy(), rtol=1e-5,
+                                       atol=1e-6)
