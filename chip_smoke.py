@@ -63,7 +63,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``core.sharding_synthesis.synthesize_cnn_grid`` picks for the smoke
    CNN over 1, 2, 4 and 8 devices (``allgather``, ``ring2``; without and
    with a memory cap that excludes the uncapped winner), and the grid
-   ``synthesize_dist_grid`` picks for each ResNet-50 layer at 4 devices.
+   ``synthesize_dist_grid`` picks for each ResNet-50 layer at 4 devices;
+8. serving, with the tuner off (the static plan: every product whose
+   extents are multiples of 8 takes the tiled GEMM): the GEMM against its
+   plain version at every distinct shape that tiles of one decode step
+   (8 slots) and one prefill (bucket 64) of llama3.2-1b and of
+   granite-moe-1b-a400m (``_step_products``: the projections, the
+   128256-wide head, the expert products), with its sums over one decode
+   step against the weights' byte bound; then llama3.2-1b at its
+   published widths, f32, random weights from a seed, served through
+   ``launch.serve.run`` on a one-rank (1,1,1) grid (8 slots, 16 requests
+   of 48-64 prompt tokens, bucket 64, 32 new tokens each): served
+   tokens/s (every token over the serve window) and the rate over decode
+   time alone, p50/p99 decode ms, the decode step's bound (its weights'
+   bytes over 3.35 TB/s) and the share reached, device-busy ms of one
+   profiled decode step, peak allocated bytes, and the GEMM's launches
+   gated against the count the static plan gives the steps' shapes
+   (``pallas_applicable_matmul``); the same weights and prompts served
+   dense (``torch.matmul``) and both runs teacher-forced on the dense
+   run's tokens, logits within 1e-3 of max|logit| at the prefill and
+   every decode step (free-running token agreement printed, not gated);
+   the smoke config's tokens on the card equal to the CPU's;
+   granite-moe-1b-a400m at full width on the same grid (4 requests, 8
+   new tokens), its launches gated and its logits teacher-forced against
+   its dense path (the experts as einsums) the same way, and the host's
+   share of a decode step printed.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -73,6 +97,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -85,6 +110,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -112,6 +138,13 @@ PARAM_LR_TOL = 1e-3
 MOMENT_RTOL = 1e-5
 MODES = ("static", "winograd", "tuned")
 SG_MODE = "static_sg"   # mode static with save_gathered=True
+# phase 8: LM serving at the published widths, f32, on the (1,1,1) grid
+SERVE_ARCH, MOE_ARCH = "llama3.2-1b", "granite-moe-1b-a400m"
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_GEN = 8, 16, 32
+SERVE_PROMPT_LENS = (48, 64)   # prompt lengths drawn in this range
+SERVE_BUCKET, SERVE_MAX_SEQ = 64, 256
+MOE_REQUESTS, MOE_GEN = 4, 8
+TF_RTOL = 1e-3   # teacher-forced logits, grid vs dense, of max|logit|
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1001,6 +1034,371 @@ def train_phase(card):
     return {mode: res[mode]["launches"] for mode in MODES + (SG_MODE,)}
 
 
+# --------------------------------------------------------------------------
+# Phase 8: LM serving at full width
+# --------------------------------------------------------------------------
+
+def _serve_cfg(arch, smoke=False):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32")
+
+
+def _serve_requests(cfg, n, gen, seed=SEED):
+    """``n`` requests with prompts of SERVE_PROMPT_LENS tokens (numpy
+    draws from ``seed``) and ``gen`` new tokens each."""
+    from repro_torch.launch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE_PROMPT_LENS
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab, int(rng.integers(lo, hi + 1)))], max_new=gen)
+            for i in range(n)]
+
+
+def _step_products(cfg, rows: int, decode: bool):
+    """(M, C, N) of every local product one decode step (``rows`` = the
+    slots) or one prefill (``rows`` = the bucket) runs on the (1,1,1)
+    grid: the routed projections, the head (one row at prefill) and the
+    MoE expert products at the capacity ``models/moe.py`` gives."""
+    from repro_torch.dist.lm import lm_decode_matmuls
+    from repro_torch.models.moe import moe_capacity, moe_group_size
+
+    out = []
+    for name, _, c, n in lm_decode_matmuls(cfg, rows):
+        if name == "lm_head":
+            out.append((rows if decode else 1, c, n))
+        else:
+            out += [(rows, c, n)] * cfg.n_layers
+    if cfg.is_moe:
+        gsz = moe_group_size(rows, cfg.moe_group_size)
+        m = rows // gsz * moe_capacity(gsz, cfg.top_k, cfg.n_experts,
+                                       cfg.capacity_factor)
+        experts = cfg.n_layers * cfg.n_experts
+        out += [(m, cfg.d_model, cfg.d_ff)] * (2 * experts)
+        out += [(m, cfg.d_ff, cfg.d_model)] * experts
+    return out
+
+
+def _kernel_products(products) -> int:
+    """How many of ``products`` the static plan gives the kernel."""
+    from repro_torch.kernels.ops import pallas_applicable_matmul
+    return sum(pallas_applicable_matmul(m, n, c) for m, c, n in products)
+
+
+def serve_kernel_phase(device):
+    """The tiled GEMM at every distinct shape the served paths give it:
+    one decode step at SERVE_SLOTS slots and one prefill (M = the bucket)
+    of llama3.2-1b and of granite-moe, each shape of ``_step_products``
+    the static plan tiles, named with its count per step.  Returns (all
+    rows, per arch the sums over one decode step's products)."""
+    from collections import Counter
+
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.ops import pallas_applicable_matmul
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    rows, steps = [], {}
+    for arch in (SERVE_ARCH, MOE_ARCH):
+        cfg = _serve_cfg(arch)
+        step = dict.fromkeys(("kernel_ms", "plain_ms", "library_ms",
+                              "bound_ms"), 0.0)
+        for what, m_rows, decode in (("decode", SERVE_SLOTS, True),
+                                     ("prefill", SERVE_BUCKET, False)):
+            counts = Counter(p for p in _step_products(cfg, m_rows, decode)
+                             if pallas_applicable_matmul(p[0], p[2], p[1]))
+            for (m, c, n), count in counts.items():
+                row = gemm_row(f"serve {arch} {what} x{count} "
+                               f"[{m},{c}]@[{c},{n}]", matmul, matmul_plain,
+                               torch.matmul, rand(m, c), rand(c, n))
+                rows.append(row)
+                if decode:
+                    for key in step:
+                        step[key] += count * row[key]
+        step["bound_share"] = step["bound_ms"] / step["kernel_ms"]
+        step["library_bound_share"] = step["bound_ms"] / step["library_ms"]
+        steps[arch] = step
+    print(json.dumps({"phase": "serve_kernels", "slots": SERVE_SLOTS,
+                      "bucket": SERVE_BUCKET, "decode_step": steps}),
+          flush=True)
+    return rows, steps
+
+
+def _weight_bytes(cfg) -> float:
+    """Bytes of the weights one decode step reads: every projection of
+    every layer, the MoE experts the step's tokens reach at most (all of
+    them) and the head, f32."""
+    from repro_torch.dist.lm import lm_decode_matmuls
+
+    total = 0.0
+    for name, _, c, n in lm_decode_matmuls(cfg, SERVE_SLOTS):
+        total += 4.0 * c * n * (1 if name == "lm_head" else cfg.n_layers)
+    if cfg.is_moe:
+        total += 4.0 * cfg.n_layers * cfg.n_experts * 3 * cfg.d_model \
+            * cfg.d_ff
+    return total
+
+
+def _teacher_forced(params, cfg, prompts, forced, mesh, device):
+    """Logits [slots, V] at the prefill and at every decode step, one
+    slot per prompt (bucket-padded prefill scattered into the per-slot
+    cache, as the engine does), every step fed the tokens ``forced``
+    (the dense run's), so two runs see the same inputs throughout."""
+    from repro_torch.models.lm import decode_step, init_cache, prefill
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, len(prompts), SERVE_MAX_SEQ, per_slot=True,
+                           device=device)
+        first = []
+        for slot, p in enumerate(prompts):
+            stage = init_cache(cfg, 1, SERVE_MAX_SEQ, device=device)
+            toks = torch.tensor([p + [0] * (SERVE_BUCKET - len(p))],
+                                dtype=torch.int32, device=device)
+            lg, stage = prefill(params, cfg, stage, toks,
+                                last_pos=len(p) - 1, dist_mesh=mesh)
+            cache["k"][:, slot] = stage["k"][:, 0]
+            cache["v"][:, slot] = stage["v"][:, 0]
+            cache["len"][slot] = len(p)
+            first.append(lg[0, 0])
+        out = [torch.stack(first)]
+        for t in range(min(len(f) for f in forced) - 1):
+            toks = torch.tensor([f[t] for f in forced], dtype=torch.int32,
+                                device=device).view(-1, 1)
+            lg, cache = decode_step(params, cfg, cache, toks,
+                                    dist_mesh=mesh)
+            out.append(lg[:, 0])
+    return out
+
+
+def _profiled_decode(params, cfg, mesh, slots, device):
+    """One profiled decode step of ``slots`` slots at prompt length
+    (``torch.profiler``)."""
+    from repro_torch.models.lm import decode_step, init_cache
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, slots, SERVE_MAX_SEQ, per_slot=True,
+                           device=device)
+        cache["len"].fill_(SERVE_PROMPT_LENS[1])
+        toks = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+        decode_step(params, cfg, cache, toks, dist_mesh=mesh)   # warm
+        return _profile(lambda: decode_step(params, cfg, cache, toks,
+                                            dist_mesh=mesh), 1,
+                        "decode_steps")
+
+
+def _serve_full(cfg, params, reqs, device):
+    """The engine on the (1,1,1) grid through ``launch.serve.run``,
+    counted: a short warm-up run, then the counts zeroed, the run, the
+    counts read.  Returns (stats, launches, peak allocated bytes)."""
+    from repro_torch.launch.serve import Request, run
+
+    kw = dict(grid=(1, 1, 1), params=params, slots=SERVE_SLOTS,
+              max_seq=SERVE_MAX_SEQ, prefill_bucket=SERVE_BUCKET,
+              device=device)
+    run(cfg, request_set=[Request(rid=0, prompt=reqs[0].prompt, max_new=2)],
+        **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    res = run(cfg, request_set=reqs, **kw)
+    launches = _launch_counts()
+    return res, launches, torch.cuda.max_memory_allocated()
+
+
+def _launch_gate(cfg, res, launches, label):
+    """The kernel's launches in a serve run against the count the static
+    plan gives its steps' shapes; returns (per decode step, per
+    prefill)."""
+    per_decode = _kernel_products(_step_products(cfg, SERVE_SLOTS, True))
+    per_prefill = _kernel_products(_step_products(cfg, SERVE_BUCKET, False))
+    admitted = sum(1 for s in res["statuses"].values() if s == "ok")
+    want = res["reps"] * per_decode + admitted * per_prefill
+    check(launches["matmul"] == want and launches["matmul"] > 0,
+          f"{label}: {launches['matmul']} GEMM launches, the static plan "
+          f"gives {res['reps']} x {per_decode} + {admitted} x "
+          f"{per_prefill} = {want}")
+    check(launches["conv2d"] == 0 and launches["wino_gemm"] == 0,
+          f"{label}: conv kernels launched {launches}")
+    return per_decode, per_prefill
+
+
+def _against_dense(cfg, params, reqs, res, mesh, device):
+    """The same weights and requests served dense (``grid=None``:
+    ``torch.matmul``, the MoE's einsums), then the first SERVE_SLOTS
+    requests teacher-forced on the dense run's tokens through the grid
+    and through the dense path: max|grid - dense| / max|dense| of the
+    logits at the prefill and at every decode step, and the free-running
+    token agreement of ``res`` (the grid's run) with the dense run."""
+    from repro_torch.launch.serve import run
+
+    dense = run(cfg, grid=None, params=params, slots=SERVE_SLOTS,
+                max_seq=SERVE_MAX_SEQ, prefill_bucket=SERVE_BUCKET,
+                request_set=_serve_requests(cfg, len(reqs),
+                                            reqs[0].max_new),
+                device=device)
+    prompts = [r.prompt for r in reqs[:SERVE_SLOTS]]
+    forced = [dense["tokens"][r.rid] for r in reqs[:SERVE_SLOTS]]
+    grid_lg = _teacher_forced(params, cfg, prompts, forced, mesh, device)
+    dense_lg = _teacher_forced(params, cfg, prompts, forced, None, device)
+    tf_errs = [float((g - d).abs().max()) / float(d.abs().max())
+               for g, d in zip(grid_lg, dense_lg)]
+    agree = sum(a == b for rid in dense["tokens"]
+                for a, b in zip(res["tokens"][rid], dense["tokens"][rid]))
+    return {"dense_tokens_per_s": dense["served_tokens_per_s"],
+            "dense_p50_decode_ms": dense["p50_ms"],
+            "teacher_forced_rel_err": tf_errs,
+            "free_running_same_requests": sum(
+                res["tokens"][rid] == dense["tokens"][rid]
+                for rid in dense["tokens"]),
+            "free_running_token_agreement": agree / max(
+                sum(len(t) for t in dense["tokens"].values()), 1)}
+
+
+def _serve_rank(rank, device="cuda"):
+    """Phase 8 on one card: llama3.2-1b and granite-moe at full width
+    served on the (1,1,1) grid and dense, teacher-forced against each
+    other; llama's smoke config on the card (CPU-generator weights)."""
+    from repro_torch.dist.lm import lm_serve_mem_elems
+    from repro_torch.dist.matmul import make_matmul_mesh
+    from repro_torch.kernels.autotune import autotune_disabled
+    from repro_torch.launch.serve import run
+    from repro_torch.models.lm import init_lm
+
+    mesh = make_matmul_mesh((1, 1, 1), device=device)
+    gen = torch.Generator(device=device)
+    out = {}
+    with autotune_disabled():   # the static paper plan
+        cfg = _serve_cfg(SERVE_ARCH)
+        t0 = time.perf_counter()
+        params = init_lm(gen.manual_seed(SEED), cfg, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        reqs = _serve_requests(cfg, SERVE_REQUESTS, SERVE_GEN)
+        res, launches, peak = _serve_full(cfg, params, reqs, device)
+        per_decode, per_prefill = _launch_gate(cfg, res, launches,
+                                               "llama serve")
+        mem = lm_serve_mem_elems(cfg, (1, 1, 1), slots=SERVE_SLOTS,
+                                 max_seq=SERVE_MAX_SEQ)
+        out["llama"] = {
+            "stats": res, "launches": launches, "peak_bytes": peak,
+            "per_decode": per_decode, "per_prefill": per_prefill,
+            "init_s": init_s,
+            **_against_dense(cfg, params, reqs, res, mesh, device),
+            "profile": _profiled_decode(params, cfg, mesh, SERVE_SLOTS,
+                                        device),
+            "analytic_peak_bytes": 4 * mem["peak"],
+            "weight_bytes": _weight_bytes(cfg)}
+        del params
+        torch.cuda.empty_cache()
+
+        smoke = _serve_cfg(SERVE_ARCH, smoke=True)
+        out["smoke_tokens"] = run(smoke, grid=(1, 1, 1), seed=SEED,
+                                  device=device)["tokens"]
+
+        moe = _serve_cfg(MOE_ARCH)
+        params = init_lm(gen.manual_seed(SEED), moe, device=device)
+        mreqs = _serve_requests(moe, MOE_REQUESTS, MOE_GEN)
+        res, launches, peak = _serve_full(moe, params, mreqs, device)
+        per_decode, per_prefill = _launch_gate(moe, res, launches,
+                                               "granite-moe serve")
+        out["moe"] = {"stats": res, "launches": launches,
+                      "peak_bytes": peak, "per_decode": per_decode,
+                      "per_prefill": per_prefill,
+                      **_against_dense(moe, params, mreqs, res, mesh,
+                                       device),
+                      "profile": _profiled_decode(params, moe, mesh,
+                                                  SERVE_SLOTS, device),
+                      "weight_bytes": _weight_bytes(moe)}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cpu_smoke_rank(rank):
+    """The smoke config served on the CPU (plain versions), the same
+    CPU-generator weights and requests as on the card."""
+    from repro_torch.kernels.autotune import autotune_disabled
+    from repro_torch.launch.serve import run
+
+    with autotune_disabled():
+        return run(_serve_cfg(SERVE_ARCH, smoke=True), grid=(1, 1, 1),
+                   seed=SEED, device="cpu")["tokens"]
+
+
+def _serve_summary(card, arch, r, extra):
+    st = r["stats"]
+    bound_ms = r["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    summary = {"phase": "serve", "arch": arch, "card": card,
+               "grid": [1, 1, 1], "plan": "static", "dtype": "float32",
+               "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
+               "prefill_bucket": SERVE_BUCKET,
+               "requests": st["n_requests"], "tokens": st["n_tokens"],
+               "decode_steps": st["reps"], "wall_s": st["wall_s"],
+               # every token over the whole serve window, prefills too
+               "tokens_per_s": st["served_tokens_per_s"],
+               "decode_tokens_per_s": st["tokens_per_s"],
+               "p50_decode_ms": st["p50_ms"], "p99_decode_ms": st["p99_ms"],
+               "mean_decode_ms": st["mean_ms"],
+               "prefill_ms_p50": statistics.median(
+                   st["prefill_ms"].values()),
+               "decode_bound_ms": bound_ms,
+               "decode_bound_share": bound_ms / st["p50_ms"],
+               "weight_bytes_per_step": r["weight_bytes"],
+               "device_busy_ms_per_step": r["profile"]["device_busy_ms"],
+               "host_share_of_step": 1.0 - r["profile"]["device_busy_share"],
+               "peak_allocated_bytes": r["peak_bytes"],
+               "launches": r["launches"],
+               "gemm_launches_per_decode_step": r["per_decode"],
+               "gemm_launches_per_prefill": r["per_prefill"],
+               "statuses_ok": sum(1 for s in st["statuses"].values()
+                                  if s == "ok"),
+               "dense_tokens_per_s": r["dense_tokens_per_s"],
+               "dense_p50_decode_ms": r["dense_p50_decode_ms"],
+               "teacher_forced_steps": len(r["teacher_forced_rel_err"]),
+               "teacher_forced_worst_rel_err": max(
+                   r["teacher_forced_rel_err"]),
+               "free_running_same_requests": r["free_running_same_requests"],
+               "free_running_token_agreement":
+                   r["free_running_token_agreement"],
+               "profile": r["profile"], **extra}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def serve_phase(card):
+    """Phase 8: LM serving through ``launch.serve.run`` (see the module
+    docstring).  Returns the GEMM's launches per serve path."""
+    from repro_torch.dist.spawn import run_spmd
+
+    t0 = time.perf_counter()
+    res = run_spmd(_serve_rank, 1)[0]
+    card_s = time.perf_counter() - t0
+    cpu_tokens = run_spmd(_cpu_smoke_rank, 1, device="cpu")[0]
+    ll, moe = res["llama"], res["moe"]
+    _serve_summary(card, SERVE_ARCH, ll, {
+        "init_s": ll["init_s"], "phase_s": card_s,
+        "analytic_peak_bytes": ll["analytic_peak_bytes"],
+        "smoke_tokens_equal_cpu": res["smoke_tokens"] == cpu_tokens})
+    _serve_summary(card, MOE_ARCH, moe, {})
+    check(ll["stats"]["n_requests"] == SERVE_REQUESTS
+          and ll["stats"]["n_tokens"] == SERVE_REQUESTS * SERVE_GEN,
+          f"llama serve: {ll['stats']['n_tokens']} tokens from "
+          f"{ll['stats']['n_requests']} requests")
+    check(moe["stats"]["n_tokens"] == MOE_REQUESTS * MOE_GEN,
+          f"granite-moe serve: {moe['stats']['n_tokens']} tokens")
+    for arch, r in ((SERVE_ARCH, ll), (MOE_ARCH, moe)):
+        worst = max(r["teacher_forced_rel_err"])
+        check(worst <= TF_RTOL, f"{arch}: teacher-forced logits, (1,1,1) "
+              f"grid vs dense: {worst:.3e} > {TF_RTOL}")
+    check(res["smoke_tokens"] == cpu_tokens,
+          "smoke config: the card's tokens differ from the CPU's")
+    return {"serve": ll["launches"]["matmul"],
+            "serve_moe": moe["launches"]["matmul"]}
+
+
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
                  launches, by_path):
     """One kernel's line: errors over every shape checked, times summed
@@ -1065,21 +1463,28 @@ def main() -> int:
     train = train_phase(card)
     warm = warm_phase()
     synthesis_phase()
+    serve_rows, serve_step = serve_kernel_phase(device)
+    rows["matmul"] += serve_rows
+    serve = serve_phase(card)
 
     def by_path(name):
         return {"infer": infer.get(name, 0),
                 **{f"train_{m}": train[m][name] for m in MODES + (SG_MODE,)},
-                "warm": warm[name]}
+                "warm": warm[name],
+                **({path: n for path, n in serve.items()}
+                   if name == "matmul" else {"serve": 0, "serve_moe": 0})}
 
     kernels = [
         kernel_entry("conv2d_direct", "src/repro_torch/kernels/csrc/conv2d.cu",
                      "src/repro/kernels/conv2d.py:77", "conv2d_pallas",
                      rows["conv2d"], path["conv2d"],
                      train["static"]["conv2d"], by_path("conv2d")),
-        kernel_entry("matmul_tiled", "src/repro_torch/kernels/csrc/gemm.cu",
-                     "src/repro/kernels/matmul.py:43", "matmul_pallas",
-                     rows["matmul"], path["matmul"],
-                     train["static"]["matmul"], by_path("matmul")),
+        dict(kernel_entry("matmul_tiled",
+                          "src/repro_torch/kernels/csrc/gemm.cu",
+                          "src/repro/kernels/matmul.py:43", "matmul_pallas",
+                          rows["matmul"], path["matmul"],
+                          train["static"]["matmul"], by_path("matmul")),
+             serve_decode_step=serve_step),
         kernel_entry("wino_gemm", "src/repro_torch/kernels/csrc/gemm.cu",
                      "src/repro/kernels/winograd.py:79", "wino_gemm_pallas",
                      rows["wino_gemm"], path["wino_gemm"],

@@ -13,7 +13,10 @@ through ``dist.matmul.matmul_distributed``, both differentiable, and
 AdamW (``train.optim``) through them.  Their per-rank contractions go
 through the autotuned menu of ``kernels.ops`` and land on hand-written
 CUDA kernels (``kernels/csrc``) on the card and on the kernels' plain
-PyTorch versions on the CPU.
+PyTorch versions on the CPU.  The LM families dense, moe and vlm
+(``configs``, ``models.lm``) serve through a continuous-batching engine
+(``launch.serve``) whose every projection runs on the ``(Pm,Pn,Pc)``
+matmul grid (``dist.lm``) and so on the same hand-written GEMM.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.resolve_device``).

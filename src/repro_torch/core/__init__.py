@@ -35,9 +35,11 @@ from repro_torch.core.problem import ConvProblem, resnet50_layers
 from repro_torch.core.sharding_synthesis import (
     DistGridChoice,
     LayerSharding,
+    ServeGridChoice,
     synthesize_dist_grid,
     synthesize_layer,
     synthesize_model,
+    synthesize_serve_grid,
 )
 from repro_torch.core.tile_optimizer import (
     ALGO_25D,
@@ -64,5 +66,6 @@ __all__ = [
     "synthesize", "comm_volume", "compare_algorithms", "grid_from_tuple",
     "synthesize_layer", "synthesize_model",
     "DistGridChoice", "synthesize_dist_grid",
+    "ServeGridChoice", "synthesize_serve_grid",
     "ALGO_2D", "ALGO_25D", "ALGO_3D",
 ]

@@ -1,5 +1,5 @@
 """Map the paper's processor-grid synthesis onto a physical mesh -- the
-port of ``repro/core/sharding_synthesis.py``, its conv and CNN half.
+port of ``repro/core/sharding_synthesis.py``.
 
 The paper synthesizes a logical grid ``P_bhw x P_k x P_c`` per operator.  A
 real machine exposes a fixed mesh (e.g. ``(pod, data, model)``).
@@ -29,10 +29,11 @@ minimizes the fwd+bwd training cost (``cost_model.cost_distributed_train``)
 accounting it reads is imported when a synthesizer runs, so importing
 this module does not import ``torch.distributed``.
 
+It also picks the ``(Pm, Pn, Pc)`` grid of the LM serving engine
+(:func:`synthesize_serve_grid`, reading ``dist.lm``'s accounting).
+
 Ranking by the calibrated time model (``minimize="time"``,
-``schedule="auto"``, ``calib=``) waits for the port of ``repro/perf``,
-and the serving grid (``synthesize_serve_grid``) for the LM-serving
-slice.
+``schedule="auto"``, ``calib=``) waits for the port of ``repro/perf``.
 """
 
 from __future__ import annotations
@@ -348,6 +349,71 @@ def synthesize_cnn_grid(x_shape, channels, n_classes: int,
             f"no (Pb,Ph,Pw,Pk,Pc) factorization of {n_devices} devices "
             f"divides every layer of CNN x{tuple(x_shape)} "
             f"channels={list(channels)}"
+            + _capped_detail(mem_cap_elems, capped_out))
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeGridChoice:
+    """A ``(Pm, Pn, Pc)`` serving grid for the LM decode path."""
+
+    grid: Tuple[int, int, int]
+    algo: str                   # 2D-SUMMA / 2.5D / 3D analogue
+    routed: int                 # projections that run on the grid
+    comm_elems: Dict            # lm_serve_comm_elems accounting
+    mem_elems: Dict             # lm_serve_mem_elems accounting
+    predicted_ms: Optional[float] = None   # replay prediction (time mode)
+
+
+def synthesize_serve_grid(cfg, n_devices: int, *, slots: int, max_seq: int,
+                          schedule: str = "allgather",
+                          minimize: str = "comm",
+                          calib=None,
+                          mem_cap_elems: Optional[float] = None
+                          ) -> ServeGridChoice:
+    """Choose the ``(Pm, Pn, Pc)`` grid for the LM serving engine.
+
+    Enumerates every 3-factorization of ``n_devices``, keeps those where
+    at least one decode projection satisfies the runtime divisibility
+    constraints, and picks by: most projections routed through the grid,
+    then least per-token decode wire (``lm_serve_comm_elems``), then
+    least peak live memory.  ``mem_cap_elems`` discards grids whose
+    per-device peak (weights + grid-sharded KV cache + transients,
+    ``lm_serve_mem_elems``) exceeds the cap -- the 2.5D memory/wire
+    tradeoff deciding the serving grid under the KV-cache budget.
+    ``minimize="time"`` and ``calib=`` raise ``NotImplementedError``
+    until the perf slice.
+    """
+    from repro_torch.dist.lm import (lm_decode_matmuls, lm_serve_comm_elems,
+                                     lm_serve_mem_elems, projection_routed)
+
+    _check_minimize(minimize, calib)
+    best: Optional[ServeGridChoice] = None
+    best_key = None
+    capped_out = 0
+    for grid in _factorizations(n_devices, 3):
+        routed = sum(projection_routed(M, C, N, grid)
+                     for _, M, C, N in lm_decode_matmuls(cfg, slots))
+        if routed == 0 and n_devices > 1:
+            continue
+        comm = lm_serve_comm_elems(cfg, grid, slots=slots,
+                                   schedule=schedule)
+        mem = lm_serve_mem_elems(cfg, grid, slots=slots, max_seq=max_seq,
+                                 schedule=schedule)
+        if mem_cap_elems is not None and mem["peak"] > mem_cap_elems:
+            capped_out += 1
+            continue
+        key = (-routed, comm["total"], mem["peak"], grid)
+        if best_key is None or key < best_key:
+            best_key = key
+            pm, pn, pc = grid
+            best = ServeGridChoice(
+                grid=grid, algo=_algo_family((pm, 1, 1, pn, pc)),
+                routed=routed, comm_elems=comm, mem_elems=mem)
+    if best is None:
+        raise ValueError(
+            f"no (Pm,Pn,Pc) factorization of {n_devices} devices routes "
+            f"a decode projection of {cfg.arch_id} at {slots} slots"
             + _capped_detail(mem_cap_elems, capped_out))
     return best
 

@@ -1,7 +1,7 @@
 """The paper's distributed conv and matmul on explicit process grids, per
-rank over ``torch.distributed``, with their backward passes, and the
-grid-parallel CNN train step (``dist.train``) -- the port of
-``repro/dist``.
+rank over ``torch.distributed``, with their backward passes, the
+grid-parallel CNN train step (``dist.train``) and LM serving on the
+matmul grid (``dist.lm``) -- the port of ``repro/dist``.
 
 Grid tuple conventions:
 
@@ -20,6 +20,12 @@ and paying zero gather-replay wire (the memory-for-wire endpoint).
 ``*_train_mem_elems`` give the analytic per-rank wire and peak-live
 memory of both endpoints, and ``repro_torch.core.sharding_synthesis``
 picks a grid by them.
+
+``dist.lm`` routes every projection of a transformer decode step through
+``matmul_distributed`` (``dist_projection``) and the MoE expert FFN with
+the experts on the contraction ring (``expert_ffn_distributed``);
+``lm_serve_comm_elems`` / ``lm_serve_mem_elems`` account a serving step
+and ``core.sharding_synthesis.synthesize_serve_grid`` picks its grid.
 
 The microbatch pipeline (``pipelined_apply``) and compressed reductions
 of the reference wait for later slices.
@@ -49,6 +55,17 @@ from repro_torch.dist.conv2d import (
     make_conv_mesh,
 )
 from repro_torch.dist.halo import halo_accumulate_1d, halo_exchange_1d
+from repro_torch.dist.lm import (
+    dist_projection,
+    expert_ffn_distributed,
+    kv_cache_elems,
+    lm_decode_matmuls,
+    lm_serve_comm_elems,
+    lm_serve_mem_elems,
+    moe_ffn_comm_elems,
+    moe_ffn_grid_divides,
+    projection_routed,
+)
 from repro_torch.dist.matmul import (
     make_matmul_mesh,
     matmul_comm_elems,
@@ -90,6 +107,9 @@ __all__ = [
     "matmul_train_mem_elems", "matmul_ring2_supported",
     "matmul_mesh_from_conv",
     "halo_exchange_1d", "halo_accumulate_1d",
+    "dist_projection", "projection_routed", "expert_ffn_distributed",
+    "moe_ffn_grid_divides", "moe_ffn_comm_elems", "lm_decode_matmuls",
+    "lm_serve_comm_elems", "lm_serve_mem_elems", "kv_cache_elems",
     "make_grid_train_step", "init_grid_train_state",
     "cnn_train_comm_elems", "cnn_train_mem_elems", "grid_divides_cnn",
 ]

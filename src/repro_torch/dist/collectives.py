@@ -93,9 +93,25 @@ def record_collectives():
         _RECORD_STACK.pop()
 
 
+_SCOPES: list = []
+
+
+@contextlib.contextmanager
+def note_scope(name: str):
+    """Prefix ``name + ":"`` to the tag of every note recorded inside (an
+    empty name adds nothing), so a caller can attribute an op's notes:
+    ``dist.lm`` scopes each routed projection by its parameter name."""
+    _SCOPES.append(name)
+    try:
+        yield
+    finally:
+        _SCOPES.pop()
+
+
 def _note(kind: str, axes, tag: str, wire_elems: float) -> None:
     if _RECORD_STACK:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        tag = ":".join([s for s in _SCOPES if s] + [tag])
         _RECORD_STACK[-1].append(
             CollectiveNote(kind, axes, tag, float(wire_elems)))
 
@@ -129,16 +145,29 @@ def mesh_view(mesh: DeviceMesh, grid, axes) -> DeviceMesh:
                       mesh_dim_names=tuple(axes))
 
 
+def _mesh_axes(mesh: DeviceMesh) -> dict:
+    """``{axis: (extent, this rank's coordinate)}``, read once per mesh
+    object: DeviceMesh recomputes its shape and this rank's coordinate on
+    every access, and these are read tens of times per distributed op (a
+    served decode step runs hundreds of ops).  Kept on the mesh object
+    itself (meshes compare equal by layout alone, whatever the process
+    group behind them), so it goes away with its mesh."""
+    axes = mesh.__dict__.get("_repro_axes")
+    if axes is None:
+        coord = mesh.get_coordinate()
+        axes = {a: (mesh.shape[i], coord[i])
+                for i, a in enumerate(mesh.mesh_dim_names)}
+        mesh._repro_axes = axes
+    return axes
+
+
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
-    # mesh.shape, not mesh.mesh.shape: DeviceMesh may rebuild its mesh
-    # tensor on every .mesh access, and this runs hundreds of times per
-    # forward
-    return mesh.shape[mesh.mesh_dim_names.index(axis)]
+    return _mesh_axes(mesh)[axis][0]
 
 
 def axis_index(mesh: DeviceMesh, axis: str) -> int:
     """This rank's coordinate along ``axis``."""
-    return mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)]
+    return _mesh_axes(mesh)[axis][1]
 
 
 def mesh_grid(mesh: DeviceMesh, axes) -> tuple:
@@ -157,6 +186,8 @@ def _slice(t: torch.Tensor, mesh: DeviceMesh, spec) -> torch.Tensor:
         for a in _spec_axes(entry):
             idx = idx * axis_size(mesh, a) + axis_index(mesh, a)
             parts *= axis_size(mesh, a)
+        if parts == 1:
+            continue
         if t.shape[dim] % parts:
             raise ValueError(f"dim {dim} of extent {t.shape[dim]} does not "
                              f"split into {parts} blocks ({entry})")

@@ -1,4 +1,5 @@
-"""Plain-PyTorch oracles for the kernels (port of ``repro/kernels/ref.py``).
+"""Plain-PyTorch oracles for the kernels and for attention (port of
+``repro/kernels/ref.py``).
 
 Written as explicit index arithmetic / einsums, not ``F.conv2d``, so they
 are a reference independent of cuDNN and of the kernels' own plain
@@ -48,3 +49,21 @@ def ref_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             out = out + torch.einsum("nchw,kc->nkhw", patch.float(),
                                      w[:, :, r, s].float())
     return out.to(x.dtype)
+
+
+def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """[B, H, S, D] attention oracle in f32 (the causal mask is aligned to
+    the last key, as the JAX package's: query ``i`` sees keys up to
+    ``i + Sk - Sq``)."""
+    d = q.shape[-1]
+    s, sk = q.shape[2], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((s, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - s)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch``, not
 ``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or the
-JAX package ``repro``.  The planner ``repro_torch.core`` is pure Python:
-importing it pulls in neither torch nor ``torch.distributed``."""
+JAX package ``repro``.  The planner ``repro_torch.core`` and the model
+configurations (``repro_torch.configs``, ``repro_torch.models.config``)
+are pure Python: importing them pulls in neither torch nor
+``torch.distributed`` nor a kernel build."""
 
 import ast
 import os
@@ -74,3 +76,22 @@ def test_core_is_pure_python():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "grid" in proc.stdout
+
+
+def test_configs_are_pure_python():
+    """The model configurations import without torch: no
+    ``torch.distributed``, no kernel build."""
+    code = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "jaxlib", "repro", "torch"):
+            sys.modules[blocked] = None  # any import of them now fails
+        import repro_torch.models.config
+        from repro_torch.configs import all_configs
+        cfgs = all_configs()
+        print(len(cfgs), cfgs["llama3_2_1b"].param_count())
+    """)
+    env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["10", "1498482688"]

@@ -67,6 +67,29 @@ def test_matmul_kernel_split_reduction_matches_plain(cuda_device, m, k, n):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
 
 
+# the LM serving products, M = 8 and 16 slots and the prefill bucket 64:
+# llama3.2-1b's projections (C and N up to 8192) and its 128256-wide vocab
+# head, granite-moe's wq/wo, wk/wv and expert gate/up (1024 x 1024, 1024 x
+# 512) and its expert down-projection (512 x 1024); sums of 512-8192
+# unit-normal products, so the tolerance scales with max|plain| as for
+# the conv.  The operands are drawn on the card.
+@pytest.mark.parametrize("m", [8, 16, 64])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 512), (2048, 8192),
+                                 (8192, 2048), (2048, 128256), (1024, 1024),
+                                 (1024, 512), (512, 1024)])
+def test_matmul_kernel_at_decode_shapes(cuda_device, m, k, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(m * k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device)
+    w = torch.randn(k, n, generator=gen, device=cuda_device)
+    before = matmul.launches
+    got = matmul(x, w)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    want = matmul_plain(x, w)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
 # (n, c, hw, k, ks): the CPU test sweep, C = 3, a ragged K, and a 56x56
 # plane wider than one pixel tile
 @pytest.mark.parametrize("padding", ["SAME", "VALID"])

@@ -86,7 +86,32 @@ def _rank_9(rank):
     line = mesh_view(mesh, (1, 3, 3), ("one", "a", "b"))
     return {"coords": (ia, ib), "ring": _ring_checks(mesh, "a", ia, 3),
             "zip": _zip_checks(mesh, "a", "b", ia, ib),
-            "zip_1x3": _zip_checks(line, "one", "b", 0, ib)}
+            "zip_1x3": _zip_checks(line, "one", "b", 0, ib),
+            "axes": _axes_checks(mesh)}
+
+
+def _axes_checks(mesh):
+    """The axis sizes and coordinates read through the per-mesh cache, of
+    the mesh and of a view over the same ranks, beside DeviceMesh's own;
+    whether the view's cache went with the view."""
+    import gc
+    import weakref
+
+    from repro_torch.dist.collectives import axis_index, axis_size, mesh_view
+
+    flat = mesh_view(mesh, (9,), ("all",))
+    out = {}
+    for m in (mesh, flat, mesh):     # the mesh again: read from its cache
+        out.setdefault("got", []).append(
+            [(axis_size(m, a), axis_index(m, a)) for a in m.mesh_dim_names])
+        out.setdefault("want", []).append(
+            [(m.shape[i], m.get_coordinate()[i])
+             for i in range(len(m.mesh_dim_names))])
+    ref = weakref.ref(flat)
+    del flat, m
+    gc.collect()
+    out["view_freed"] = ref() is None
+    return out
 
 
 def _rank_5(rank):
@@ -166,6 +191,17 @@ def _zip_want(ia, ib, ga, gb, a_of, b_of):
              for q in range(gb) for t in range(steps)
              if src(q, t, gb) == ib)
     return acc, da, db
+
+
+def test_mesh_axes_cached_per_mesh_and_freed_with_it(runs):
+    """Every rank reads each mesh's own sizes and coordinates (a view over
+    the same ranks keeps its own), and a mesh's cached axes do not keep
+    it alive."""
+    for rank, res in enumerate(runs[9]):
+        axes = res["axes"]
+        assert axes["got"] == axes["want"]
+        assert axes["got"][1] == [(9, rank)]
+        assert axes["view_freed"]
 
 
 @pytest.mark.parametrize("kind", ["zip", "zip_1x3"])
