@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: ``nvcc`` compiles the kernels in ``src/repro_torch/kernels/csrc``
-   for ``sm_90a`` (into the git-ignored ``kernels/build``);
+   (``conv2d.cu``, ``gemm.cu``, ``skinny_gemm.cu``; one ``nvcc`` each, all
+   started together) for ``sm_90a`` (into the git-ignored
+   ``kernels/build``);
 3. kernel vs plain: each hand-written kernel against its plain PyTorch
    version on the card at every shape the CNN's forward and train step
    give it (the direct conv at the forward, dIn and dKer shapes, the
@@ -24,7 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``core.problem.resnet50_layers(batch=64)``, forward, SAME) gives it:
    the direct conv at the 1x1 and 3x3 layers, Winograd's tile GEMM at
    the 3x3 layers, the tiled GEMM at ``conv1``'s im2col product
-   ``[802816,147]@[147,64]``;
+   ``[802816,147]@[147,64]``; and one bfloat16 row each for the conv and
+   Winograd's tile GEMM at the 64 -> 64 layer (their wrappers widen bf16
+   operands to f32 and narrow the result once; the widening's own time
+   is printed as ``widen_ms``), held to ``BF16_KERNEL_RTOL``;
 4. inference at full width: the repro CNN at ResNet-50's 3x3 stage
    widths (channels 64..512, 3 input channels, 1000 classes, batch 64,
    56x56) answers batches of images through ``forward_cnn(dist_mesh=...)``
@@ -65,29 +70,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    with a memory cap that excludes the uncapped winner), and the grid
    ``synthesize_dist_grid`` picks for each ResNet-50 layer at 4 devices;
 8. serving, with the tuner off (the static plan: every product whose
-   extents are multiples of 8 takes the tiled GEMM): the GEMM against its
-   plain version at every distinct shape that tiles of one decode step
-   (8 slots) and one prefill (bucket 64) of llama3.2-1b and of
-   granite-moe-1b-a400m (``_step_products``: the projections, the
-   128256-wide head, the expert products), with its sums over one decode
-   step against the weights' byte bound; then llama3.2-1b at its
-   published widths, f32, random weights from a seed, served through
+   extents are multiples of 8 takes the GEMM, on the route
+   ``_plan.skinny_route`` gives it: the skinny GEMM for every bf16
+   product and the f32 ones of at most ``SKINNY_M`` rows, the tile core
+   for the rest): the GEMM against its plain version at every distinct
+   shape that tiles of one decode step (8 slots) and one prefill (bucket
+   64) of llama3.2-1b and of granite-moe-1b-a400m
+   (``dist.lm.lm_step_products``: the projections, the 128256-wide head,
+   the expert products), in f32 and in bf16, each against
+   ``torch.matmul`` at the same dtype, with kernel, device-only, bound
+   and library ms, the device-only ms again with the weight cold (taken
+   in turn from copies that exceed the 50 MB L2, as in a decode step:
+   ``cold_device_ms``), and the sums over one decode step per dtype
+   against the weights' byte bound (and the tile core at llama's f32 decode shapes,
+   their route before the skinny GEMM); then llama3.2-1b at its
+   published widths, random weights from a seed, served through
    ``launch.serve.run`` on a one-rank (1,1,1) grid (8 slots, 16 requests
-   of 48-64 prompt tokens, bucket 64, 32 new tokens each): served
-   tokens/s (every token over the serve window) and the rate over decode
-   time alone, p50/p99 decode ms, the decode step's bound (its weights'
-   bytes over 3.35 TB/s) and the share reached, device-busy ms of one
-   profiled decode step, peak allocated bytes, and the GEMM's launches
-   gated against the count the static plan gives the steps' shapes
-   (``pallas_applicable_matmul``); the same weights and prompts served
-   dense (``torch.matmul``) and both runs teacher-forced on the dense
-   run's tokens, logits within 1e-3 of max|logit| at the prefill and
-   every decode step (free-running token agreement printed, not gated);
-   the smoke config's tokens on the card equal to the CPU's;
-   granite-moe-1b-a400m at full width on the same grid (4 requests, 8
-   new tokens), its launches gated and its logits teacher-forced against
-   its dense path (the experts as einsums) the same way, and the host's
-   share of a decode step printed.
+   of 48-64 prompt tokens, bucket 64, 32 new tokens each) twice: in its
+   own dtype, bf16 (this slice's main path), and in f32.  Each run
+   prints served tokens/s (every token over the serve window) and the
+   rate over decode time alone, p50/p99 decode ms, the decode step's
+   bound (its weights' bytes over 3.35 TB/s) and the share reached,
+   device-busy ms and the top kernels of one profiled decode step, and
+   peak allocated bytes; it gates the GEMM's launches, and the skinny
+   GEMM's among them, against the counts the static plan gives the
+   steps' shapes, and serves the same weights and prompts dense
+   (``torch.matmul``) with both runs teacher-forced on the dense run's
+   tokens, logits within ``TF_BF16_RTOL`` (bf16) or ``TF_RTOL`` (f32)
+   of max|logit| at the prefill and every decode step (free-running
+   token agreement printed, not gated); the smoke config's tokens on the
+   card equal to the CPU's, in both dtypes; granite-moe-1b-a400m at full
+   width in f32 on the same grid (4 requests, 8 new tokens), its
+   launches gated and its logits teacher-forced against its dense path
+   (the experts as einsums) the same way, and the host's share of a
+   decode step printed.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -115,8 +131,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 F32_PEAK_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+BF16_PEAK_FLOPS = 989e12    # H100 SXM, bfloat16 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 KERNEL_RTOL = 1e-4   # max|kernel - plain| / max|plain|, f32 sums reordered
+# the same in bfloat16: both sum in f32 in their own orders and round once
+# to bfloat16, whose ulp is 2^-8 ~ 3.9e-3: two ulps
+BF16_KERNEL_RTOL = 8e-3
 LOGITS_RTOL = 1e-3   # 8 conv layers + head, card vs CPU, f32 throughout
 SEED = 0
 CHANNELS = [64, 64, 128, 128, 256, 256, 512, 512]
@@ -145,6 +165,15 @@ SERVE_PROMPT_LENS = (48, 64)   # prompt lengths drawn in this range
 SERVE_BUCKET, SERVE_MAX_SEQ = 64, 256
 MOE_REQUESTS, MOE_GEN = 4, 8
 TF_RTOL = 1e-3   # teacher-forced logits, grid vs dense, of max|logit|
+# the same for llama3.2-1b served in its own dtype, bfloat16.  The CPU
+# test (tests/test_torch_bf16.py) puts two valid bf16 roundings of the
+# smoke llama (2 layers) 1.33e-2 of max|logit| apart (port vs reference,
+# 3 seeds), while the same model with its f32 sums merely reordered moves
+# by 9.3e-6.  Grid vs dense on the card differ in the sums' order only
+# (the skinny GEMM vs cuBLAS, both f32 sums); the full model has 8x the
+# layers, sqrt(8) x 1.33e-2 = 3.8e-2 if its rounding noise grew like a
+# full re-rounding's: the gate is the 5e-2 cap
+TF_BF16_RTOL = 5e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -198,6 +227,29 @@ def device_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_device_ms(fn, x, w, budget: int = 256 << 20) -> float:
+    """Device time of ``fn(x, w')`` per call, queued behind a spin of the
+    device as in :func:`device_ms`, with ``w'`` taken in turn from copies
+    of ``w`` that together exceed the card's 50 MB L2: every call finds
+    its weight in device memory, as a decode step does (it streams a
+    model's weights once), where back-to-back calls on one weight under
+    50 MB read it from the L2."""
+    n = max(2, -(-budget // (w.numel() * w.element_size())))
+    copies = [w] + [w.clone() for _ in range(n - 1)]
+    iters = min(n, 100)
+    fn(x, w)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(5_000_000)
+    start.record()
+    for i in range(iters):
+        fn(x, copies[i])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean host time of ``fn()`` over ``iters`` calls: the launch path
     (wrapper, allocation, launch), without waiting for the device."""
@@ -212,10 +264,11 @@ def host_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return elapsed / iters * 1e3
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, what bounds it) on an H100 at full power."""
-    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, \
-        nbytes / HBM_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, peak: float = F32_PEAK_FLOPS):
+    """(least ms, what bounds it) on an H100 at full power: ``flops`` at
+    ``peak`` FLOP/s (f32 FFMA, or bf16 tensor cores) or ``nbytes`` over
+    HBM, whichever is larger."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), \
         ("operations" if ops_ms >= bytes_ms else "bytes")
 
@@ -231,23 +284,35 @@ def conv_layers():
     return out
 
 
+def _dtype_terms(*tensors):
+    """(tolerance, peak FLOP/s, dtype name) of operands: bfloat16 work is
+    held to BF16_KERNEL_RTOL and bounded by the tensor cores' rate."""
+    if any(t.dtype == torch.bfloat16 for t in tensors):
+        return BF16_KERNEL_RTOL, BF16_PEAK_FLOPS, "bfloat16"
+    return KERNEL_RTOL, F32_PEAK_FLOPS, "float32"
+
+
 def compare_kernel(name, kernel, plain, library, args, flops, nbytes,
-                   direction=None):
+                   direction=None, extra=None):
     out = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
-    check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
-          f"{name}: shape {tuple(out.shape)} or non-finite values")
-    abs_err = float((out - ref).abs().max())
-    rel = abs_err / float(ref.abs().max())
-    check(rel <= KERNEL_RTOL, f"{name}: max|d|/max|ref| {rel:.3e} > "
-          f"{KERNEL_RTOL}")
+    rtol, peak, dtype = _dtype_terms(*args)
+    check(out.shape == ref.shape and out.dtype == ref.dtype
+          and bool(torch.isfinite(out).all()),
+          f"{name}: shape {tuple(out.shape)}, dtype {out.dtype} or "
+          f"non-finite values")
+    abs_err = float((out.float() - ref.float()).abs().max())
+    rel = abs_err / float(ref.float().abs().max())
+    check(rel <= rtol, f"{name}: max|d|/max|ref| {rel:.3e} > {rtol}")
     lib = library(*args)
     torch.cuda.synchronize()
-    check(float((lib - ref).abs().max()) / float(ref.abs().max())
-          <= KERNEL_RTOL, f"{name}: the library call disagrees")
-    bms, by = bound(flops, nbytes)
-    row = {"shape": name, "max_abs_err": abs_err, "rel_err": rel,
+    check(float((lib.float() - ref.float()).abs().max())
+          / float(ref.float().abs().max()) <= rtol,
+          f"{name}: the library call disagrees")
+    bms, by = bound(flops, nbytes, peak)
+    row = {"shape": name, "dtype": dtype, "max_abs_err": abs_err,
+           "rel_err": rel, "rtol": rtol,
            "kernel_ms": time_ms(lambda: kernel(*args)),
            "plain_ms": time_ms(lambda: plain(*args), iters=3, warmup=1,
                                repeats=1),
@@ -260,6 +325,7 @@ def compare_kernel(name, kernel, plain, library, args, flops, nbytes,
     row["library_host_ms"] = host_ms(lambda: library(*args))
     if direction is not None:
         row["direction"] = direction
+    row.update(extra or {})
     print(json.dumps(row), flush=True)
     return row
 
@@ -275,17 +341,31 @@ def conv_row(name, x, w, direction):
         name, lambda a, b: conv2d(a, b, padding="VALID"),
         lambda a, b: conv2d_plain(a, b, padding="VALID"), F.conv2d, (x, w),
         2.0 * n * k * c * ho * wo * kh * kw,
-        4.0 * (x.numel() + w.numel() + n * k * ho * wo), direction)
+        x.element_size() * (x.numel() + w.numel() + n * k * ho * wo),
+        direction, extra=_widen_ms(x, w, (n, k, ho, wo)))
 
 
-def gemm_row(name, kernel, plain, library, a, b):
-    """Kernel vs plain vs library for one (batched) GEMM."""
+def _widen_ms(a, b, out_shape):
+    """For bfloat16 operands of a kernel that computes in float32 (the
+    conv, Winograd's tile GEMM): the time of the wrapper's widening of
+    both operands and its narrowing of the float32 output, alone."""
+    if a.dtype != torch.bfloat16:
+        return {}
+    out = torch.empty(out_shape, device=a.device)
+    return {"widen_ms": time_ms(lambda: (a.float(), b.float(),
+                                         out.to(torch.bfloat16)))}
+
+
+def gemm_row(name, kernel, plain, library, a, b, extra=None):
+    """Kernel vs plain vs library for one (batched) GEMM, at the
+    operands' dtype."""
     t = a.shape[0] if a.dim() == 3 else 1
     m, kk = a.shape[-2:]
     n = b.shape[-1]
     return compare_kernel(name, kernel, plain, library, (a, b),
                           2.0 * t * m * kk * n,
-                          4.0 * t * (m * kk + kk * n + m * n))
+                          a.element_size() * t * (m * kk + kk * n + m * n),
+                          extra=extra)
 
 
 def kernel_phase(device):
@@ -369,7 +449,22 @@ def kernel_phase(device):
         if on_path:
             path["matmul"].append(row)
     rows["conv2d"] += path["conv2d"]
-    return rows, path, conv_infer
+
+    # bfloat16: the conv and Winograd's tile GEMM widen bf16 operands to
+    # f32 in the wrapper and narrow the result once (the reference's
+    # arithmetic); one row each at the 64 -> 64 layer at 56x56
+    c, k, h = conv_layers()[1]
+    bf = torch.bfloat16
+    bf16 = {"conv2d": conv_row(
+        f"conv fwd VALID bf16 N={BATCH} C={c} K={k} H=W={h + 2}",
+        rand(BATCH, c, h + 2, h + 2).to(bf), rand(k, c, 3, 3).to(bf), "fwd")}
+    p = BATCH * (h // 2) ** 2
+    v, u = rand(16, p, c).to(bf), rand(16, c, k).to(bf)
+    bf16["wino_gemm"] = gemm_row(
+        f"wino_gemm fwd bf16 [16,{p},{c}]@[16,{c},{k}] (C={c} K={k} H={h})",
+        wino_gemm, wino_gemm_plain, wino_gemm_einsum, v, u,
+        extra=_widen_ms(v, u, (16, p, k)))
+    return rows, path, conv_infer, bf16
 
 
 def resnet50_phase(device):
@@ -777,10 +872,13 @@ def _dispatch_mode(mode, cache_dir, params, batches, mesh):
 
 
 def _launch_counts():
+    """Each wrapper's launches; ``matmul`` counts both GEMM routes,
+    ``skinny_gemm`` the skinny one among them."""
     from repro_torch.kernels.conv2d import conv2d
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.winograd import wino_gemm
     return {"conv2d": conv2d.launches, "matmul": matmul.launches,
+            "skinny_gemm": matmul.skinny_launches,
             "wino_gemm": wino_gemm.launches}
 
 
@@ -789,6 +887,7 @@ def _zero_counts():
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.winograd import wino_gemm
     conv2d.launches = matmul.launches = wino_gemm.launches = 0
+    matmul.skinny_launches = 0
 
 
 def _train_mode(params, batch, small, mesh, step, opt, branches, record,
@@ -1038,9 +1137,12 @@ def train_phase(card):
 # Phase 8: LM serving at full width
 # --------------------------------------------------------------------------
 
-def _serve_cfg(arch, smoke=False):
+def _serve_cfg(arch, smoke=False, dtype="float32"):
+    """``arch``'s config at ``dtype``: float32 for the f32 runs (as in
+    PR 15), ``None`` for the config's own dtype (bfloat16)."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch, smoke=smoke), dtype="float32")
+    cfg = get_config(arch, smoke=smoke)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
 
 def _serve_requests(cfg, n, gen, seed=SEED):
@@ -1055,72 +1157,102 @@ def _serve_requests(cfg, n, gen, seed=SEED):
             for i in range(n)]
 
 
-def _step_products(cfg, rows: int, decode: bool):
-    """(M, C, N) of every local product one decode step (``rows`` = the
-    slots) or one prefill (``rows`` = the bucket) runs on the (1,1,1)
-    grid: the routed projections, the head (one row at prefill) and the
-    MoE expert products at the capacity ``models/moe.py`` gives."""
-    from repro_torch.dist.lm import lm_decode_matmuls
-    from repro_torch.models.moe import moe_capacity, moe_group_size
-
-    out = []
-    for name, _, c, n in lm_decode_matmuls(cfg, rows):
-        if name == "lm_head":
-            out.append((rows if decode else 1, c, n))
-        else:
-            out += [(rows, c, n)] * cfg.n_layers
-    if cfg.is_moe:
-        gsz = moe_group_size(rows, cfg.moe_group_size)
-        m = rows // gsz * moe_capacity(gsz, cfg.top_k, cfg.n_experts,
-                                       cfg.capacity_factor)
-        experts = cfg.n_layers * cfg.n_experts
-        out += [(m, cfg.d_model, cfg.d_ff)] * (2 * experts)
-        out += [(m, cfg.d_ff, cfg.d_model)] * experts
-    return out
-
-
-def _kernel_products(products) -> int:
-    """How many of ``products`` the static plan gives the kernel."""
+def _kernel_products(cfg, rows: int, decode: bool):
+    """(products the static plan gives the GEMM, those of them that take
+    the skinny route) of one decode step or prefill of ``cfg`` at its
+    dtype."""
+    from repro_torch.dist.lm import lm_step_products
+    from repro_torch.kernels._plan import skinny_route
     from repro_torch.kernels.ops import pallas_applicable_matmul
-    return sum(pallas_applicable_matmul(m, n, c) for m, c, n in products)
+
+    kernel = [(m, c, n) for m, c, n in lm_step_products(cfg, rows, decode)
+              if pallas_applicable_matmul(m, n, c)]
+    return len(kernel), sum(skinny_route(m, n, c, cfg.torch_dtype)
+                            for m, c, n in kernel)
+
+
+STEP_KEYS = ("kernel_ms", "kernel_device_ms", "kernel_cold_device_ms",
+             "plain_ms", "library_ms", "library_device_ms",
+             "library_cold_device_ms", "bound_ms")
 
 
 def serve_kernel_phase(device):
-    """The tiled GEMM at every distinct shape the served paths give it:
-    one decode step at SERVE_SLOTS slots and one prefill (M = the bucket)
-    of llama3.2-1b and of granite-moe, each shape of ``_step_products``
-    the static plan tiles, named with its count per step.  Returns (all
-    rows, per arch the sums over one decode step's products)."""
+    """The GEMM at every distinct shape the served paths give it, in
+    float32 and in bfloat16: one decode step at SERVE_SLOTS slots and one
+    prefill (M = the bucket) of llama3.2-1b and of granite-moe, each shape
+    the static plan tiles, named with its count per step, on the route the
+    plan gives it (``skinny``: csrc/skinny_gemm.cu; ``tile``: the tile
+    core in csrc/gemm.cu) against ``torch.matmul`` at the same dtype; and,
+    for comparison in the same run, the tile core at llama's float32
+    decode shapes (their route in PR 15).  Returns (rows by route, per
+    arch and dtype the sums over one decode step's products)."""
     from collections import Counter
 
-    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.dist.lm import lm_step_products
+    from repro_torch.kernels._plan import skinny_route
+    from repro_torch.kernels.matmul import launch_gemm, matmul, matmul_plain
     from repro_torch.kernels.ops import pallas_applicable_matmul
 
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=gen, device=device)
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
-    rows, steps = [], {}
+    rows = {"skinny": [], "tile": [], "tile_pr15": []}
+    steps = {}
     for arch in (SERVE_ARCH, MOE_ARCH):
-        cfg = _serve_cfg(arch)
-        step = dict.fromkeys(("kernel_ms", "plain_ms", "library_ms",
-                              "bound_ms"), 0.0)
-        for what, m_rows, decode in (("decode", SERVE_SLOTS, True),
-                                     ("prefill", SERVE_BUCKET, False)):
-            counts = Counter(p for p in _step_products(cfg, m_rows, decode)
-                             if pallas_applicable_matmul(p[0], p[2], p[1]))
-            for (m, c, n), count in counts.items():
-                row = gemm_row(f"serve {arch} {what} x{count} "
-                               f"[{m},{c}]@[{c},{n}]", matmul, matmul_plain,
-                               torch.matmul, rand(m, c), rand(c, n))
-                rows.append(row)
-                if decode:
-                    for key in step:
-                        step[key] += count * row[key]
-        step["bound_share"] = step["bound_ms"] / step["kernel_ms"]
-        step["library_bound_share"] = step["bound_ms"] / step["library_ms"]
-        steps[arch] = step
+        cfg = _serve_cfg(arch, dtype=None)
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype).replace("torch.", "")
+            step = dict.fromkeys(STEP_KEYS, 0.0)
+            for what, m_rows, decode in (("decode", SERVE_SLOTS, True),
+                                         ("prefill", SERVE_BUCKET, False)):
+                counts = Counter(
+                    p for p in lm_step_products(cfg, m_rows, decode)
+                    if pallas_applicable_matmul(p[0], p[2], p[1]))
+                for (m, c, n), count in counts.items():
+                    route = "skinny" if skinny_route(m, n, c, dtype) \
+                        else "tile"
+                    x, w = rand(m, c, dtype=dtype), rand(c, n, dtype=dtype)
+                    row = gemm_row(
+                        f"serve {arch} {what} {dt} x{count} "
+                        f"[{m},{c}]@[{c},{n}]", matmul, matmul_plain,
+                        torch.matmul, x, w,
+                        extra={"route": route, "arch": arch, "step": what,
+                               "count": count,
+                               "kernel_cold_device_ms": cold_device_ms(
+                                   matmul, x, w),
+                               "library_cold_device_ms": cold_device_ms(
+                                   torch.matmul, x, w)})
+                    del x, w
+                    rows[route].append(row)
+                    if decode:
+                        for key in step:
+                            step[key] += count * row[key]
+                    if decode and arch == SERVE_ARCH \
+                            and dtype == torch.float32:
+                        x, w = rand(m, c), rand(c, n)
+                        rows["tile_pr15"].append(gemm_row(
+                            f"serve {arch} decode float32 tile core x{count}"
+                            f" [{m},{c}]@[{c},{n}]", launch_gemm,
+                            matmul_plain, torch.matmul, x, w,
+                            extra={"route": "tile_pr15", "count": count,
+                                   "kernel_cold_device_ms": cold_device_ms(
+                                       launch_gemm, x, w),
+                                   "library_cold_device_ms": cold_device_ms(
+                                       torch.matmul, x, w)}))
+                        del x, w
+            step["bound_share"] = step["bound_ms"] / step["kernel_ms"]
+            step["device_bound_share"] = (step["bound_ms"]
+                                          / step["kernel_device_ms"])
+            step["cold_device_bound_share"] = (
+                step["bound_ms"] / step["kernel_cold_device_ms"])
+            step["library_bound_share"] = (step["bound_ms"]
+                                           / step["library_ms"])
+            steps[f"{arch} {dt}"] = step
+    tile15 = {key: sum(r["count"] * r[key] for r in rows["tile_pr15"])
+              for key in STEP_KEYS}
+    steps[f"{SERVE_ARCH} float32 tile core (PR 15 route)"] = tile15
     print(json.dumps({"phase": "serve_kernels", "slots": SERVE_SLOTS,
                       "bucket": SERVE_BUCKET, "decode_step": steps}),
           flush=True)
@@ -1128,16 +1260,17 @@ def serve_kernel_phase(device):
 
 
 def _weight_bytes(cfg) -> float:
-    """Bytes of the weights one decode step reads: every projection of
-    every layer, the MoE experts the step's tokens reach at most (all of
-    them) and the head, f32."""
+    """Bytes of the weights one decode step reads at the config's dtype:
+    every projection of every layer, the MoE experts the step's tokens
+    reach at most (all of them) and the head."""
     from repro_torch.dist.lm import lm_decode_matmuls
 
+    size = cfg.torch_dtype.itemsize
     total = 0.0
     for name, _, c, n in lm_decode_matmuls(cfg, SERVE_SLOTS):
-        total += 4.0 * c * n * (1 if name == "lm_head" else cfg.n_layers)
+        total += size * c * n * (1 if name == "lm_head" else cfg.n_layers)
     if cfg.is_moe:
-        total += 4.0 * cfg.n_layers * cfg.n_experts * 3 * cfg.d_model \
+        total += size * cfg.n_layers * cfg.n_experts * 3 * cfg.d_model \
             * cfg.d_ff
     return total
 
@@ -1209,19 +1342,23 @@ def _serve_full(cfg, params, reqs, device):
 
 
 def _launch_gate(cfg, res, launches, label):
-    """The kernel's launches in a serve run against the count the static
-    plan gives its steps' shapes; returns (per decode step, per
-    prefill)."""
-    per_decode = _kernel_products(_step_products(cfg, SERVE_SLOTS, True))
-    per_prefill = _kernel_products(_step_products(cfg, SERVE_BUCKET, False))
+    """The GEMM's launches in a serve run, and the skinny GEMM's among
+    them, against the counts the static plan gives its steps' shapes at
+    the config's dtype; returns (per decode step, per prefill), each a
+    (GEMM, skinny) pair."""
+    per_decode = _kernel_products(cfg, SERVE_SLOTS, True)
+    per_prefill = _kernel_products(cfg, SERVE_BUCKET, False)
     admitted = sum(1 for s in res["statuses"].values() if s == "ok")
-    want = res["reps"] * per_decode + admitted * per_prefill
-    check(launches["matmul"] == want and launches["matmul"] > 0,
-          f"{label}: {launches['matmul']} GEMM launches, the static plan "
-          f"gives {res['reps']} x {per_decode} + {admitted} x "
-          f"{per_prefill} = {want}")
-    check(launches["conv2d"] == 0 and launches["wino_gemm"] == 0,
-          f"{label}: conv kernels launched {launches}")
+    for i, (name, what) in enumerate((("matmul", "GEMM"),
+                                      ("skinny_gemm", "skinny GEMM"))):
+        want = res["reps"] * per_decode[i] + admitted * per_prefill[i]
+        check(launches[name] == want and (launches[name] > 0 or want == 0),
+              f"{label}: {launches[name]} {what} launches, the static plan "
+              f"gives {res['reps']} x {per_decode[i]} + {admitted} x "
+              f"{per_prefill[i]} = {want}")
+    check(launches["matmul"] > 0 and launches["conv2d"] == 0
+          and launches["wino_gemm"] == 0,
+          f"{label}: launches {launches}")
     return per_decode, per_prefill
 
 
@@ -1257,11 +1394,39 @@ def _against_dense(cfg, params, reqs, res, mesh, device):
                 sum(len(t) for t in dense["tokens"].values()), 1)}
 
 
-def _serve_rank(rank, device="cuda"):
-    """Phase 8 on one card: llama3.2-1b and granite-moe at full width
-    served on the (1,1,1) grid and dense, teacher-forced against each
-    other; llama's smoke config on the card (CPU-generator weights)."""
+def _serve_llama(cfg, gen, mesh, device, label):
+    """llama3.2-1b at ``cfg``'s dtype, served on the (1,1,1) grid and
+    dense, counted, gated and teacher-forced; what the summary prints."""
     from repro_torch.dist.lm import lm_serve_mem_elems
+    from repro_torch.models.lm import init_lm
+
+    t0 = time.perf_counter()
+    params = init_lm(gen.manual_seed(SEED), cfg, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = _serve_requests(cfg, SERVE_REQUESTS, SERVE_GEN)
+    res, launches, peak = _serve_full(cfg, params, reqs, device)
+    per_decode, per_prefill = _launch_gate(cfg, res, launches, label)
+    mem = lm_serve_mem_elems(cfg, (1, 1, 1), slots=SERVE_SLOTS,
+                             max_seq=SERVE_MAX_SEQ)
+    out = {"stats": res, "launches": launches, "peak_bytes": peak,
+           "per_decode": per_decode, "per_prefill": per_prefill,
+           "init_s": init_s, "dtype": cfg.dtype,
+           **_against_dense(cfg, params, reqs, res, mesh, device),
+           "profile": _profiled_decode(params, cfg, mesh, SERVE_SLOTS,
+                                       device),
+           "analytic_peak_bytes": cfg.torch_dtype.itemsize * mem["peak"],
+           "weight_bytes": _weight_bytes(cfg)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_rank(rank, device="cuda"):
+    """Phase 8 on one card: llama3.2-1b in bfloat16 (its own dtype) and in
+    float32, and granite-moe in float32, at full width served on the
+    (1,1,1) grid and dense, teacher-forced against each other; llama's
+    smoke config on the card in both dtypes (CPU-generator weights)."""
     from repro_torch.dist.matmul import make_matmul_mesh
     from repro_torch.kernels.autotune import autotune_disabled
     from repro_torch.launch.serve import run
@@ -1271,32 +1436,16 @@ def _serve_rank(rank, device="cuda"):
     gen = torch.Generator(device=device)
     out = {}
     with autotune_disabled():   # the static paper plan
-        cfg = _serve_cfg(SERVE_ARCH)
-        t0 = time.perf_counter()
-        params = init_lm(gen.manual_seed(SEED), cfg, device=device)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        reqs = _serve_requests(cfg, SERVE_REQUESTS, SERVE_GEN)
-        res, launches, peak = _serve_full(cfg, params, reqs, device)
-        per_decode, per_prefill = _launch_gate(cfg, res, launches,
-                                               "llama serve")
-        mem = lm_serve_mem_elems(cfg, (1, 1, 1), slots=SERVE_SLOTS,
-                                 max_seq=SERVE_MAX_SEQ)
-        out["llama"] = {
-            "stats": res, "launches": launches, "peak_bytes": peak,
-            "per_decode": per_decode, "per_prefill": per_prefill,
-            "init_s": init_s,
-            **_against_dense(cfg, params, reqs, res, mesh, device),
-            "profile": _profiled_decode(params, cfg, mesh, SERVE_SLOTS,
-                                        device),
-            "analytic_peak_bytes": 4 * mem["peak"],
-            "weight_bytes": _weight_bytes(cfg)}
-        del params
-        torch.cuda.empty_cache()
-
-        smoke = _serve_cfg(SERVE_ARCH, smoke=True)
-        out["smoke_tokens"] = run(smoke, grid=(1, 1, 1), seed=SEED,
-                                  device=device)["tokens"]
+        # this slice's main path: llama3.2-1b served in bfloat16
+        out["llama_bf16"] = _serve_llama(_serve_cfg(SERVE_ARCH, dtype=None),
+                                         gen, mesh, device,
+                                         "llama bf16 serve")
+        out["llama"] = _serve_llama(_serve_cfg(SERVE_ARCH), gen, mesh,
+                                    device, "llama serve")
+        out["smoke_tokens"] = {
+            dt: run(_serve_cfg(SERVE_ARCH, smoke=True, dtype=dt),
+                    grid=(1, 1, 1), seed=SEED, device=device)["tokens"]
+            for dt in ("float32", "bfloat16")}
 
         moe = _serve_cfg(MOE_ARCH)
         params = init_lm(gen.manual_seed(SEED), moe, device=device)
@@ -1306,7 +1455,7 @@ def _serve_rank(rank, device="cuda"):
                                                "granite-moe serve")
         out["moe"] = {"stats": res, "launches": launches,
                       "peak_bytes": peak, "per_decode": per_decode,
-                      "per_prefill": per_prefill,
+                      "per_prefill": per_prefill, "dtype": moe.dtype,
                       **_against_dense(moe, params, mreqs, res, mesh,
                                        device),
                       "profile": _profiled_decode(params, moe, mesh,
@@ -1318,21 +1467,23 @@ def _serve_rank(rank, device="cuda"):
 
 
 def _cpu_smoke_rank(rank):
-    """The smoke config served on the CPU (plain versions), the same
-    CPU-generator weights and requests as on the card."""
+    """The smoke config served on the CPU (plain versions) in float32 and
+    in bfloat16, the same CPU-generator weights and requests as on the
+    card."""
     from repro_torch.kernels.autotune import autotune_disabled
     from repro_torch.launch.serve import run
 
     with autotune_disabled():
-        return run(_serve_cfg(SERVE_ARCH, smoke=True), grid=(1, 1, 1),
-                   seed=SEED, device="cpu")["tokens"]
+        return {dt: run(_serve_cfg(SERVE_ARCH, smoke=True, dtype=dt),
+                        grid=(1, 1, 1), seed=SEED, device="cpu")["tokens"]
+                for dt in ("float32", "bfloat16")}
 
 
 def _serve_summary(card, arch, r, extra):
     st = r["stats"]
     bound_ms = r["weight_bytes"] / HBM_BYTES_PER_S * 1e3
     summary = {"phase": "serve", "arch": arch, "card": card,
-               "grid": [1, 1, 1], "plan": "static", "dtype": "float32",
+               "grid": [1, 1, 1], "plan": "static", "dtype": r["dtype"],
                "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
                "prefill_bucket": SERVE_BUCKET,
                "requests": st["n_requests"], "tokens": st["n_tokens"],
@@ -1351,8 +1502,8 @@ def _serve_summary(card, arch, r, extra):
                "host_share_of_step": 1.0 - r["profile"]["device_busy_share"],
                "peak_allocated_bytes": r["peak_bytes"],
                "launches": r["launches"],
-               "gemm_launches_per_decode_step": r["per_decode"],
-               "gemm_launches_per_prefill": r["per_prefill"],
+               "gemm_and_skinny_launches_per_decode_step": r["per_decode"],
+               "gemm_and_skinny_launches_per_prefill": r["per_prefill"],
                "statuses_ok": sum(1 for s in st["statuses"].values()
                                   if s == "ok"),
                "dense_tokens_per_s": r["dense_tokens_per_s"],
@@ -1370,33 +1521,41 @@ def _serve_summary(card, arch, r, extra):
 
 def serve_phase(card):
     """Phase 8: LM serving through ``launch.serve.run`` (see the module
-    docstring).  Returns the GEMM's launches per serve path."""
+    docstring).  Returns the GEMM's and the skinny GEMM's launches per
+    serve path."""
     from repro_torch.dist.spawn import run_spmd
 
     t0 = time.perf_counter()
     res = run_spmd(_serve_rank, 1)[0]
     card_s = time.perf_counter() - t0
     cpu_tokens = run_spmd(_cpu_smoke_rank, 1, device="cpu")[0]
-    ll, moe = res["llama"], res["moe"]
-    _serve_summary(card, SERVE_ARCH, ll, {
-        "init_s": ll["init_s"], "phase_s": card_s,
-        "analytic_peak_bytes": ll["analytic_peak_bytes"],
-        "smoke_tokens_equal_cpu": res["smoke_tokens"] == cpu_tokens})
+    bf, ll, moe = res["llama_bf16"], res["llama"], res["moe"]
+    smoke_equal = {dt: res["smoke_tokens"][dt] == cpu_tokens[dt]
+                   for dt in cpu_tokens}
+    for r in (bf, ll):
+        _serve_summary(card, SERVE_ARCH, r, {
+            "init_s": r["init_s"], "phase_s": card_s,
+            "analytic_peak_bytes": r["analytic_peak_bytes"],
+            "smoke_tokens_equal_cpu": smoke_equal[r["dtype"]]})
     _serve_summary(card, MOE_ARCH, moe, {})
-    check(ll["stats"]["n_requests"] == SERVE_REQUESTS
-          and ll["stats"]["n_tokens"] == SERVE_REQUESTS * SERVE_GEN,
-          f"llama serve: {ll['stats']['n_tokens']} tokens from "
-          f"{ll['stats']['n_requests']} requests")
+    for r in (bf, ll):
+        check(r["stats"]["n_requests"] == SERVE_REQUESTS
+              and r["stats"]["n_tokens"] == SERVE_REQUESTS * SERVE_GEN,
+              f"llama {r['dtype']} serve: {r['stats']['n_tokens']} tokens "
+              f"from {r['stats']['n_requests']} requests")
     check(moe["stats"]["n_tokens"] == MOE_REQUESTS * MOE_GEN,
           f"granite-moe serve: {moe['stats']['n_tokens']} tokens")
-    for arch, r in ((SERVE_ARCH, ll), (MOE_ARCH, moe)):
+    for arch, r, tol in ((SERVE_ARCH, bf, TF_BF16_RTOL),
+                         (SERVE_ARCH, ll, TF_RTOL), (MOE_ARCH, moe, TF_RTOL)):
         worst = max(r["teacher_forced_rel_err"])
-        check(worst <= TF_RTOL, f"{arch}: teacher-forced logits, (1,1,1) "
-              f"grid vs dense: {worst:.3e} > {TF_RTOL}")
-    check(res["smoke_tokens"] == cpu_tokens,
-          "smoke config: the card's tokens differ from the CPU's")
-    return {"serve": ll["launches"]["matmul"],
-            "serve_moe": moe["launches"]["matmul"]}
+        check(worst <= tol, f"{arch} {r['dtype']}: teacher-forced logits, "
+              f"(1,1,1) grid vs dense: {worst:.3e} > {tol}")
+    for dt, equal in smoke_equal.items():
+        check(equal, f"smoke config in {dt}: the card's tokens differ from "
+              f"the CPU's")
+    paths = {"serve_bf16": bf, "serve": ll, "serve_moe": moe}
+    return {name: {path: r["launches"][name] for path, r in paths.items()}
+            for name in ("matmul", "skinny_gemm")}
 
 
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
@@ -1434,6 +1593,33 @@ def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
             **extra}
 
 
+def skinny_entry(rows, step, launches, by_path):
+    """The skinny GEMM's line: errors over every serving shape checked in
+    both dtypes, times summed over one bfloat16 decode step of
+    llama3.2-1b (each product times its count: this slice's main path),
+    the float32 step beside them."""
+    bf = [r for r in rows if r["dtype"] == "bfloat16"]
+    f32 = [r for r in rows if r["dtype"] == "float32"]
+    main_step = step[f"{SERVE_ARCH} bfloat16"]
+    return {"name": "skinny_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/skinny_gemm.cu",
+            "replaces": "src/repro/kernels/matmul.py:43",
+            "jax_function": "matmul_pallas",
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_rel_err_bfloat16": max(r["rel_err"] for r in bf),
+            "max_rel_err_float32": max(r["rel_err"] for r in f32),
+            "ms": main_step["kernel_ms"],
+            "device_ms": main_step["kernel_device_ms"],
+            "plain_ms": main_step["plain_ms"],
+            "bound_ms": main_step["bound_ms"], "bound_by": "bytes",
+            "library_ms": main_step["library_ms"],
+            "library_device_ms": main_step["library_device_ms"],
+            "per": f"one decode step of {SERVE_ARCH} in bfloat16, "
+                   f"{SERVE_SLOTS} slots",
+            "decode_step": step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1454,7 +1640,7 @@ def main() -> int:
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         print(log.read_text(), flush=True)
 
-    rows, path, conv_infer = kernel_phase(device)
+    rows, path, conv_infer, bf16 = kernel_phase(device)
     print(json.dumps({"phase": "kernels", "conv2d_infer_ms": sum(
         r["kernel_ms"] for r in conv_infer)}), flush=True)
     for name, extra in resnet50_phase(device).items():
@@ -1464,15 +1650,19 @@ def main() -> int:
     warm = warm_phase()
     synthesis_phase()
     serve_rows, serve_step = serve_kernel_phase(device)
-    rows["matmul"] += serve_rows
+    rows["matmul"] += serve_rows["tile"]
     serve = serve_phase(card)
 
     def by_path(name):
-        return {"infer": infer.get(name, 0),
-                **{f"train_{m}": train[m][name] for m in MODES + (SG_MODE,)},
-                "warm": warm[name],
-                **({path: n for path, n in serve.items()}
-                   if name == "matmul" else {"serve": 0, "serve_moe": 0})}
+        counts = {"infer": infer.get(name, 0),
+                  **{f"train_{m}": train[m][name]
+                     for m in MODES + (SG_MODE,)},
+                  "warm": warm[name]}
+        counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
+        return counts
+
+    skinny = by_path("skinny_gemm")
+    tile = {p: n - skinny[p] for p, n in by_path("matmul").items()}
 
     kernels = [
         kernel_entry("conv2d_direct", "src/repro_torch/kernels/csrc/conv2d.cu",
@@ -1483,13 +1673,21 @@ def main() -> int:
                           "src/repro_torch/kernels/csrc/gemm.cu",
                           "src/repro/kernels/matmul.py:43", "matmul_pallas",
                           rows["matmul"], path["matmul"],
-                          train["static"]["matmul"], by_path("matmul")),
-             serve_decode_step=serve_step),
+                          train["static"]["matmul"], tile),
+             serve_rows=[r["shape"] for r in serve_rows["tile"]]),
+        skinny_entry(serve_rows["skinny"], serve_step,
+                     serve["skinny_gemm"]["serve_bf16"], skinny),
         kernel_entry("wino_gemm", "src/repro_torch/kernels/csrc/gemm.cu",
                      "src/repro/kernels/winograd.py:79", "wino_gemm_pallas",
                      rows["wino_gemm"], path["wino_gemm"],
                      train["winograd"]["wino_gemm"], by_path("wino_gemm")),
     ]
+    for entry in kernels:   # the bf16 rows of the widening wrappers
+        name = {"conv2d_direct": "conv2d"}.get(entry["name"], entry["name"])
+        if name in bf16:
+            entry["bfloat16"] = {key: bf16[name][key] for key in (
+                "shape", "rel_err", "kernel_ms", "kernel_device_ms",
+                "library_ms", "bound_ms", "widen_ms")}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

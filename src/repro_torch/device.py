@@ -3,9 +3,9 @@
 Every entry point resolves its device here: ``cuda`` unless the caller
 asks for another device, and an error -- never a quiet CPU run -- when no
 card is present.  Resolving a CUDA device also pins float32 to IEEE
-float32 (no TF32 in cuDNN convolutions or matmuls), so that every
-``torch.matmul`` / ``F.conv2d`` the port leaves to PyTorch keeps parity
-with the f32 reference.
+float32 (no TF32 in cuDNN convolutions or matmuls) and bfloat16 matmuls
+to float32 sums, so that every ``torch.matmul`` / ``F.conv2d`` the port
+leaves to PyTorch keeps parity with the reference.
 """
 
 from __future__ import annotations
@@ -14,9 +14,12 @@ import torch
 
 
 def pin_fp32() -> None:
-    """Turn TF32 off for cuDNN and cuBLAS float32 work."""
+    """Turn TF32 off for cuDNN and cuBLAS float32 work, and make cuBLAS
+    sum bfloat16 products in float32 (no reduced-precision reduction), as
+    the reference's ``preferred_element_type=float32`` does."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
 
 

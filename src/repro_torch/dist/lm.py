@@ -63,7 +63,7 @@ from repro_torch.dist.matmul import (AXES, OUT_SPEC, W_SPEC, X_SPEC,
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import gelu
-from repro_torch.models.moe import moe_group_size
+from repro_torch.models.moe import moe_capacity, moe_group_size
 
 GLUE_TAG = "serve_glue"
 DISP_SPEC = (None, None, "c", None)          # [g, t, E, C]: experts over c
@@ -205,6 +205,29 @@ def lm_decode_matmuls(cfg: ModelConfig, slots: int
         shapes.append(("w_down", slots, cfg.d_ff, d))
     shapes.append(("lm_head", slots, d, cfg.vocab))
     return shapes
+
+
+def lm_step_products(cfg: ModelConfig, rows: int, decode: bool
+                     ) -> List[Tuple[int, int, int]]:
+    """``(M, C, N)`` of every local product one decode step (``rows`` =
+    the slots) or one prefill (``rows`` = the bucket) runs on the
+    ``(1,1,1)`` grid, in no particular order: the routed projections of
+    every layer, the head (one row at prefill) and the MoE expert
+    products at the capacity ``models/moe.py`` gives."""
+    out = []
+    for name, _, c, n in lm_decode_matmuls(cfg, rows):
+        if name == "lm_head":
+            out.append((rows if decode else 1, c, n))
+        else:
+            out += [(rows, c, n)] * cfg.n_layers
+    if cfg.is_moe:
+        gsz = moe_group_size(rows, cfg.moe_group_size)
+        m = rows // gsz * moe_capacity(gsz, cfg.top_k, cfg.n_experts,
+                                       cfg.capacity_factor)
+        experts = cfg.n_layers * cfg.n_experts
+        out += [(m, cfg.d_model, cfg.d_ff)] * (2 * experts)
+        out += [(m, cfg.d_ff, cfg.d_model)] * experts
+    return out
 
 
 def _moe_decode_group(cfg: ModelConfig, slots: int) -> Tuple[int, int]:

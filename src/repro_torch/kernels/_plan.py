@@ -29,6 +29,27 @@ floor moved no shape by more than the run-to-run spread.
 
 The SM count comes from the card (``sm_count``); the CPU tests pass the
 H100's 132.
+
+The second GEMM of ``matmul_pallas``'s port, ``csrc/skinny_gemm.cu``,
+has its own plan, :func:`skinny_plan`: strips of :data:`SKINNY_STRIP`
+output columns, up to 64 rows of ``x`` per block, and the reduction cut
+into whole slabs until the card has about :data:`SKINNY_BLOCKS_PER_SM`
+blocks per SM, no chunk shorter than :data:`SKINNY_MIN_SLABS` slabs; a
+product whose weight is at most :data:`SKINNY_LAUNCH_BOUND_BYTES` takes
+no more splits than one cluster holds, as the core's launch-bound
+products do: the scratch and the second kernel of more splits cost the
+host ~10 us a call (llama's and granite-moe's decode products, served on
+an H100) and saved the card at most 2 us at those shapes.
+:func:`skinny_route` says which products take it: every bfloat16
+product, and the float32 ones with at most :data:`SKINNY_M` rows whose
+rows are whole float4s (N and K multiples of 4).  The constants come
+from ``tools/skinny_sweep.py`` on an H100: over a llama3.2-1b decode
+step's products (device time) the split rules with one or two blocks per
+SM and chunks of one to four slabs came within 4% of each other, four
+blocks per SM lost 10-20% in bfloat16, and a two-slab floor was best for
+granite-moe's small expert products; the float32 skinny route beat the
+tile core at every llama width at M = 8, 16 and 32, and lost at two of
+four at M = 64.
 """
 
 from __future__ import annotations
@@ -86,3 +107,55 @@ def gemm_plan(t: int, m: int, n: int, r: int, sms: int = 132) -> GemmPlan:
 def sm_count(index: int) -> int:
     """The number of SMs of card ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---- the skinny GEMM (csrc/skinny_gemm.cu) --------------------------------
+
+SKINNY_M = 32        # float32 products of at most this many rows go skinny
+SKINNY_STRIP = 128   # output columns per block (skinny_gemm.cu: kStrip)
+# reduction indices per slab, and the x rows a block can take, per dtype
+SKINNY_SLAB = {torch.bfloat16: 64, torch.float32: 32}
+SKINNY_ROWS = {torch.bfloat16: (8, 16, 32, 64), torch.float32: (8, 16)}
+SKINNY_BLOCKS_PER_SM = 1
+SKINNY_MIN_SLABS = 2
+SKINNY_LAUNCH_BOUND_BYTES = 64 << 20  # ~20 us of the H100's HBM rate
+
+
+class SkinnyPlan(NamedTuple):
+    strip: int    # output columns per block
+    slab: int     # reduction indices per slab
+    rows: int     # rows of x per block, a value of SKINNY_ROWS[dtype]
+    splits: int   # reduction chunks, each non-empty
+    chunk: int    # reduction indices per chunk, whole slabs
+    grid: tuple   # (strips, row chunks, splits)
+    scratch: int  # floats of split scratch: 0 for one split or a cluster
+
+
+def skinny_route(m: int, n: int, k: int, dtype) -> bool:
+    """Whether ``[m, k] @ [k, n]`` in ``dtype`` takes the skinny GEMM
+    (else the tile core): every bfloat16 product, and float32 ones with at
+    most :data:`SKINNY_M` rows whose rows are whole float4s."""
+    if dtype == torch.bfloat16:
+        return True
+    return (dtype == torch.float32 and m <= SKINNY_M and n % 4 == 0
+            and k % 4 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def skinny_plan(m: int, n: int, k: int, dtype, sms: int = 132) -> SkinnyPlan:
+    """The launch of the skinny GEMM ``[m, k] @ [k, n]`` in ``dtype`` on a
+    card with ``sms`` SMs."""
+    choices = SKINNY_ROWS[dtype]
+    rows = next((r for r in choices if r >= m), choices[-1])
+    slab = SKINNY_SLAB[dtype]
+    blocks = _cdiv(n, SKINNY_STRIP) * _cdiv(m, rows)
+    slabs = max(1, _cdiv(k, slab))
+    small = k * n * dtype.itemsize <= SKINNY_LAUNCH_BOUND_BYTES
+    splits = max(1, min(_cdiv(SKINNY_BLOCKS_PER_SM * sms, blocks),
+                        slabs // SKINNY_MIN_SLABS, GRID_YZ_MAX,
+                        MAX_CLUSTER if small else GRID_YZ_MAX))
+    per = _cdiv(slabs, splits)
+    splits = _cdiv(slabs, per)  # every chunk non-empty
+    return SkinnyPlan(SKINNY_STRIP, slab, rows, splits, per * slab,
+                      (_cdiv(n, SKINNY_STRIP), _cdiv(m, rows), splits),
+                      m * n * splits if splits > MAX_CLUSTER else 0)

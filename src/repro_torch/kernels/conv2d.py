@@ -6,6 +6,16 @@ CUDA tensor it launches the kernel on PyTorch's current stream, on a CPU
 tensor it runs :func:`conv2d_plain`, the kernel's plain PyTorch version
 -- the Pallas body's sum over (r, s) of shifted-window contractions, in
 f32.  There is no fallback between the two.
+
+The kernel computes in float32.  bfloat16 card operands are widened to
+float32 in the wrapper (exact), run through the same kernel, and the
+result narrowed to bfloat16 once: the reference's arithmetic exactly
+(bfloat16 products are exact in float32, the sums are float32, one
+rounding at the end), for the price of the two widening copies and the
+narrowing one.  The kernel's loaders are 4- and 16-byte ``cp.async``
+copies of floats into a k-major layout, which a 2-byte element cannot
+take; native bfloat16 loaders wait for a later slice (no CNN of either
+package runs bfloat16).
 """
 
 from __future__ import annotations
@@ -70,11 +80,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
         if x.device.type == "cpu":
             return conv2d_plain(x, w, padding=padding)
         raise ValueError(f"conv2d runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"the CUDA conv2d takes float32, got {x.dtype} "
-                        f"x {w.dtype}")
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA conv2d takes float32 or bfloat16, both "
+                        f"operands alike, got {x.dtype} x {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the CUDA conv2d takes contiguous operands")
+    dtype = x.dtype
+    x, w = x.float(), w.float()   # bfloat16: widened, exactly
     lib = _build.load()
     plan = gemm_plan(1, n * ho * wo, k, c * kh * kw,
                      sm_count(x.get_device()))
@@ -86,7 +98,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
         kh, kw, ho, wo, pad_h, pad_w, *plan.tile, plan.splits, plan.chunk,
         _build.stream_handle(x)), "conv2d")
     conv2d.launches += 1
-    return out
+    return out.to(dtype)
 
 
 conv2d.launches = 0

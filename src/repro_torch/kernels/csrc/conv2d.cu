@@ -45,10 +45,17 @@
 // reduction into whole-slab chunks until the card has about four blocks
 // per SM (up to 523 splits at C = 3), and the tile core sums the partial
 // tiles in a fixed order.
+// bfloat16: the wrapper (kernels/conv2d.py) widens bf16 operands to f32,
+// which is exact, runs this kernel, and narrows the output once -- the
+// reference's arithmetic (bf16 products exact in f32, f32 sums, one
+// rounding), for the price of the copies (13% of a bf16 conv at the
+// 64 -> 64 layer on an H100).  Native bf16 loaders would need another
+// layout: the loaders' 4- and 16-byte copies of floats into a k-major
+// slab cannot transpose a 2-byte element.
 // Left for a later PR: 3xTF32 on the tensor cores (wgmma fed by TMA or
 // by the gathers through an mbarrier ring), which changes the IEEE f32
 // contract; an output tile staged through shared memory for coalesced
-// NCHW stores.
+// NCHW stores; native bf16 loaders.
 
 #include <type_traits>
 

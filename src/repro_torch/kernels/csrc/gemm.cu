@@ -41,10 +41,13 @@
 // tile sum in a thread-block cluster: one launch, no scratch.  Long thin
 // products -- Winograd's dU, the im2col candidate's dKer product
 // [9C, N*H*W] @ [N*H*W, K] -- split until the card has about four blocks
-// per SM and sum through scratch.  Left for a later PR: 3xTF32 on the
+// per SM and sum through scratch.  bfloat16: the matmul wrapper sends
+// bf16 products to csrc/skinny_gemm.cu, and wino_gemm's wrapper widens
+// bf16 operands to f32 (exact), runs this kernel and narrows the output
+// once, the reference's arithmetic.  Left for a later PR: 3xTF32 on the
 // tensor cores (wgmma with TMA-staged operands and an mbarrier ring),
 // which changes the IEEE f32 contract and needs its own tolerance
-// argument.
+// argument; native bf16 loaders for Winograd.
 
 #include "tile_gemm.cuh"
 

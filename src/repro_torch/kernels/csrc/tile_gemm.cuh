@@ -398,15 +398,61 @@ tile_gemm(const __grid_constant__ typename Op::Params p) {
   }
 }
 
+// out[i] = the sum over the splits of parts[split][i], in split order,
+// converted once to T (float, or a narrower type such as bfloat16).
 // static: each source that includes this header gets its own copy
+template <class T>
 static __global__ void sum_splits(const float* __restrict__ parts,
-                           float* __restrict__ out, size_t len, int splits) {
+                                  T* __restrict__ out, size_t len,
+                                  int splits) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int j = 0; j < splits; ++j) s += parts[(size_t)j * len + i];
-    out[i] = s;
+    out[i] = T(s);
   }
+}
+
+// Adds the partial slices of `parts` ([splits][len]) into `out`.
+template <class T>
+void launch_sum_splits(const float* parts, T* out, size_t len, int splits,
+                       cudaStream_t stream) {
+  const size_t blocks = (len + 255) / 256 < 4096 ? (len + 255) / 256 : 4096;
+  sum_splits<T><<<(unsigned)blocks, 256, 0, stream>>>(parts, out, len,
+                                                      splits);
+}
+
+// Launches `kernel(p)` on `grid` with `smem` bytes of dynamic shared
+// memory (raising the kernel's limit past the default 48 KB), as
+// thread-block clusters of 1 x 1 x `cluster_z` blocks when cluster_z > 1;
+// returns the launch's error.
+template <class P>
+int launch_kernel(void (*kernel)(P), dim3 grid, int threads, int smem,
+                  int cluster_z, cudaStream_t stream, const P& p) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (cluster_z <= 1) {
+    kernel<<<grid, threads, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster_z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // Launches the tile GEMM of `p` (p.g.out is ignored) and returns
@@ -434,41 +480,13 @@ int launch(typename Op::Params p, float* out, float* scratch, int splits,
   if (cluster) {
     constexpr int kRed = C::BM * C::BN * (int)sizeof(float);
     constexpr int kSmem = kRed > C::kSmemBytes ? kRed : C::kSmemBytes;
-    auto kernel = tile_gemm<C, Op, true>;
-    if (kSmem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(C::kThreads);
-    cfg.dynamicSmemBytes = kSmem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = splits;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return launch_kernel(tile_gemm<C, Op, true>, grid, C::kThreads, kSmem,
+                         splits, stream, p);
   }
-  auto kernel = tile_gemm<C, Op, false>;
-  if (C::kSmemBytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(p);
-  if (splits > 1) {
-    const size_t len = g.out_len;
-    const size_t blocks = (len + 255) / 256 < 4096 ? (len + 255) / 256 : 4096;
-    sum_splits<<<(unsigned)blocks, 256, 0, stream>>>(scratch, out, len,
-                                                     splits);
-  }
+  const int err = launch_kernel(tile_gemm<C, Op, false>, grid, C::kThreads,
+                                C::kSmemBytes, 1, stream, p);
+  if (err || splits == 1) return err;
+  launch_sum_splits(scratch, out, g.out_len, splits, stream);
   return (int)cudaGetLastError();
 }
 

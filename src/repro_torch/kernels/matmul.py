@@ -1,11 +1,18 @@
-"""Tiled f32 matmul -- the port of ``repro/kernels/matmul.py``.
+"""The matmul -- the port of ``repro/kernels/matmul.py``.
 
-:func:`matmul` is the wrapper of the hand-written CUDA kernel in
-``csrc/gemm.cu`` at one batch entry (which replaces the Pallas
-``matmul_pallas``; the same kernel is Winograd's tile GEMM): on a
-CUDA tensor it launches the kernel on PyTorch's current stream, on a CPU
-tensor it runs :func:`matmul_plain`, the kernel's plain PyTorch version.
-There is no fallback between the two.
+:func:`matmul` is the wrapper of the two hand-written CUDA kernels that
+replace the Pallas ``matmul_pallas``: on a CUDA tensor it launches one of
+them on PyTorch's current stream, on a CPU tensor it runs
+:func:`matmul_plain`, their plain PyTorch version.  There is no fallback
+between the two.  Which kernel a card operand takes is a rule of the
+shape and dtype (``_plan.skinny_route``):
+
+* ``csrc/skinny_gemm.cu`` (:func:`launch_skinny`): every bfloat16
+  product (tensor cores, f32 accumulation, bfloat16 out), and the float32
+  ones with at most ``_plan.SKINNY_M`` rows (FFMA) -- a decode step's
+  products, bound by the bytes of the weight;
+* ``csrc/gemm.cu`` at one batch entry (:func:`launch_gemm`, the tile
+  core, which is also Winograd's tile GEMM): every other float32 product.
 """
 
 from __future__ import annotations
@@ -14,7 +21,8 @@ import torch
 
 from repro_torch.device import forward_only
 from repro_torch.kernels import _build
-from repro_torch.kernels._plan import gemm_plan, sm_count
+from repro_torch.kernels._plan import (gemm_plan, skinny_plan, skinny_route,
+                                       sm_count)
 
 
 def launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,15 +48,45 @@ def launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def launch_skinny(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch ``repro_skinny_gemm`` on checked CUDA operands ``[M,K] @
+    [K,N]`` of one dtype (bfloat16 or float32), with the plan of
+    :func:`~repro_torch.kernels._plan.skinny_plan` (and its scratch).
+    Raises on what its 16-byte copies cannot take: N or K not a whole
+    number of 16-byte vectors, or an operand not 16-byte aligned."""
+    lib = _build.load()
+    m, k = x.shape
+    n = w.shape[1]
+    vec = 16 // x.element_size()
+    if n % vec or k % vec:
+        raise ValueError(f"the skinny GEMM needs N and K multiples of {vec} "
+                         f"in {x.dtype}, got [{m},{k}] @ [{k},{n}]")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("the skinny GEMM needs 16-byte aligned operands")
+    plan = skinny_plan(m, n, k, x.dtype, sm_count(x.get_device()))
+    out = x.new_empty(m, n)
+    scratch = (x.new_empty(plan.scratch, dtype=torch.float32)
+               if plan.scratch else None)
+    _build.check(lib, lib.repro_skinny_gemm(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        int(x.dtype == torch.bfloat16), m, n, k, plan.strip, plan.slab,
+        plan.rows, plan.splits, plan.chunk, _build.stream_handle(x)),
+        "skinny_gemm")
+    return out
+
+
 def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``[M,K] @ [K,N]`` in f32, cast back to ``x.dtype``."""
     return (x.float() @ w.float()).to(x.dtype)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``[M,K] @ [K,N] -> [M,N]`` (x.dtype), f32 accumulation.
+    """``[M,K] @ [K,N] -> [M,N]`` (x.dtype), f32 accumulation; on the card
+    float32 or bfloat16, both operands of one dtype.
 
-    ``matmul.launches`` counts the kernel's launches."""
+    ``matmul.launches`` counts the launches of both kernels,
+    ``matmul.skinny_launches`` those of the skinny GEMM alone."""
     forward_only(x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul needs [M,K] @ [K,N], got "
@@ -59,14 +97,19 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
             return matmul_plain(x, w)
         raise ValueError(f"matmul runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"the CUDA matmul takes float32, got {x.dtype} "
-                        f"@ {w.dtype}")
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA matmul takes float32 or bfloat16, both "
+                        f"operands alike, got {x.dtype} @ {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the CUDA matmul takes contiguous operands")
-    out = launch_gemm(x, w)
+    if skinny_route(x.shape[0], w.shape[1], x.shape[1], x.dtype):
+        out = launch_skinny(x, w)
+        matmul.skinny_launches += 1
+    else:
+        out = launch_gemm(x, w)
     matmul.launches += 1
     return out
 
 
 matmul.launches = 0
+matmul.skinny_launches = 0

@@ -14,7 +14,10 @@ CUDA kernel in ``csrc/gemm.cu`` (which replaces the Pallas
 ``wino_gemm_pallas``, and at one batch entry ``matmul_pallas``):
 :func:`wino_gemm` launches it on a CUDA tensor and runs
 :func:`wino_gemm_plain`, its plain PyTorch version, on a CPU tensor,
-with no fallback between the two.  :func:`wino_gemm_einsum` is
+with no fallback between the two.  The kernel computes in float32:
+bfloat16 card operands are widened in the wrapper (exact) and the result
+narrowed once, the reference's arithmetic (see ``kernels/conv2d.py``;
+native bfloat16 loaders wait for a later slice).  :func:`wino_gemm_einsum` is
 the GEMM's library backend (the JAX package's XLA einsum).  The GEMM
 callable of :func:`conv2d_winograd` is injected by ``kernels.ops``.
 """
@@ -73,14 +76,15 @@ def wino_gemm(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return wino_gemm_plain(v, u)
     if v.device.type != "cuda":
         raise ValueError(f"wino_gemm runs on cuda or cpu, not {v.device}")
-    if v.dtype != torch.float32 or u.dtype != torch.float32:
-        raise TypeError(f"the CUDA wino_gemm takes float32, got {v.dtype} "
-                        f"@ {u.dtype}")
+    if v.dtype != u.dtype or v.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA wino_gemm takes float32 or bfloat16, "
+                        f"both operands alike, got {v.dtype} @ {u.dtype}")
     if not (v.is_contiguous() and u.is_contiguous()):
         raise ValueError("the CUDA wino_gemm takes contiguous operands")
-    out = launch_gemm(v, u)
+    # bfloat16: widened exactly, the float32 kernel, one rounding
+    out = launch_gemm(v.float(), u.float())
     wino_gemm.launches += 1
-    return out
+    return out.to(v.dtype)
 
 
 wino_gemm.launches = 0

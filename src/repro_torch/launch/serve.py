@@ -25,11 +25,12 @@ rank: with a ``(Pm, Pn, Pc)`` mesh (``dist_mesh``) every rank runs the
 same engine on the same requests and emits the same tokens.
 ``core.sharding_synthesis.synthesize_serve_grid`` picks the grid.
 
-The port serves in float32: the hand-written GEMM takes f32 only.  Not
-here yet: the decode watchdog, ``state_dump_path``, ``fault_log`` and
-``injector`` belong to the fault runtime (raise ``NotImplementedError``);
-the static ``Engine`` for the non-transformer families waits for the
-zoo slice.
+The CLI serves at the config's own dtype (bfloat16 for the LM configs;
+the GEMM takes it on the card) and in float32 under ``--smoke``, as the
+reference's does (:func:`serve_config`).  Not here yet: the decode
+watchdog, ``state_dump_path``, ``fault_log`` and ``injector`` belong to
+the fault runtime (raise ``NotImplementedError``); the static ``Engine``
+for the non-transformer families waits for the zoo slice.
 
 CLI::
 
@@ -442,6 +443,16 @@ def run(cfg, *, requests: int = 8, prompt_len: int = 16, gen: int = 16,
     return res
 
 
+def serve_config(arch: str, smoke: bool = False):
+    """The CLI's config of ``arch``: its own dtype, but float32 for a
+    transformer under ``smoke``, as the reference's CLI (the greedy-token
+    comparison of the smoke run needs f32 headroom, not bf16 rounding)."""
+    cfg = get_config(arch, smoke=smoke)
+    if smoke and cfg.family in _TRANSFORMER_FAMILIES:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    return cfg
+
+
 def _serve_rank(rank: int, cfg, kw: Dict) -> Dict:
     """One rank of a grid run (``dist.spawn.run_spmd``)."""
     return run(cfg, **kw)
@@ -471,14 +482,11 @@ def main(argv=None):
     from repro_torch.dist.spawn import run_spmd
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = serve_config(args.arch, smoke=args.smoke)
     if cfg.family not in _TRANSFORMER_FAMILIES:
         raise NotImplementedError(
             f"serving family {cfg.family!r} needs the static Engine, which "
             f"waits for the zoo slice of the port")
-    # f32: the hand-written GEMM takes float32, and the greedy token
-    # comparison needs f32 headroom
-    cfg = dataclasses.replace(cfg, dtype="float32")
 
     # smoke pins the 2.5D (2,2,2) grid, as the reference's does
     grid = args.grid or (SMOKE_GRID if args.smoke else None)
@@ -505,7 +513,8 @@ def main(argv=None):
             print("[serve] the ranks emitted different tokens")
             raise SystemExit(1)
     wire = res.get("wire_bytes_per_tok", 0.0)
-    print(f"[serve] {cfg.arch_id} on {device.type} grid={res['grid']} "
+    print(f"[serve] {cfg.arch_id} ({cfg.dtype}) on {device.type} "
+          f"grid={res['grid']} "
           f"schedule={res['schedule']}: {res['n_tokens']} tokens from "
           f"{res['n_requests']} requests, "
           f"{res['served_tokens_per_s']:.0f} tok/s served "

@@ -9,7 +9,9 @@ card.  Every test here is marked ``gpu`` and skips without a CUDA device
 (``--noconftest``: ``tests/conftest.py`` imports jax.)  Tolerance: f32
 ``rtol=1e-4`` and ``atol=1e-4`` (times max|plain| for the conv and the
 batched tile GEMM) on unit-normal data; the kernel and the plain version
-sum in different orders, neither uses TF32.
+sum in different orders, neither uses TF32.  bfloat16: max|kernel -
+plain| within ``BF16_KERNEL_RTOL`` = 8e-3 of max|plain|, two bfloat16
+ulps: both sum in float32 in their own orders and round once.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
 from repro_torch.kernels.winograd import wino_gemm, wino_gemm_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+BF16_KERNEL_RTOL = 8e-3
 
 
 def _normal(seed, *shape):
@@ -184,7 +187,7 @@ def test_kernel_refuses_non_contiguous_and_wrong_dtype(cuda_device):
     x = torch.ones(8, 16, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         matmul(x.t(), x)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         matmul(x.double(), x.double().t().contiguous())
 
 
@@ -235,3 +238,142 @@ def test_ops_candidates_differentiate_on_the_card(cuda_device, impl):
     for got, want in zip(results[1], results[0]):
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+# ---- bfloat16, and the skinny GEMM (csrc/skinny_gemm.cu) ----------------
+
+def _bf16_rel(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+# Queue 3's case: a decode step's projections in bfloat16 through the
+# dispatcher the grid calls (static plan), at 8 slots and the bucket 64
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 512), (2048, 8192),
+                                 (8192, 2048), (2048, 128256), (1024, 1024),
+                                 (1024, 512), (512, 1024)])
+def test_local_matmul_bf16_at_decode_shapes(cuda_device, m, k, n):
+    from repro_torch.kernels import autotune, ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m * k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    before = (matmul.launches, matmul.skinny_launches)
+    with autotune.autotune_disabled(), torch.inference_mode():
+        got = ops.local_matmul(x, w)
+    torch.cuda.synchronize()
+    assert (matmul.launches, matmul.skinny_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert _bf16_rel(got, matmul_plain(x, w)) <= BF16_KERNEL_RTOL
+
+
+# the float32 route of the skinny GEMM: M <= SKINNY_M rows, IEEE FFMA
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (8192, 2048), (1024, 512),
+                                 (2048, 128256)])
+def test_skinny_f32_route_matches_plain(cuda_device, m, k, n):
+    from repro_torch.kernels._plan import SKINNY_M
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device)
+    w = torch.randn(k, n, generator=gen, device=cuda_device)
+    before = matmul.skinny_launches
+    got = matmul(x, w)
+    torch.cuda.synchronize()
+    assert matmul.skinny_launches == before + (m <= SKINNY_M)
+    want = matmul_plain(x, w)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+# ragged reductions: K not a whole number of slabs (the last slab of the
+# last split zero-filled), a last split shorter than the others, rows
+# past one 64-row block and not a multiple of 8, N past a whole strip;
+# a long reduction past SKINNY_LAUNCH_BOUND_BYTES, summed through scratch
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(8, 2056, 2048), (8, 1000, 520),
+                                   (8, 8192, 2048), (72, 4104, 264),
+                                   (3, 520, 1032), (130, 264, 128),
+                                   (8, 65544, 1032)])
+def test_skinny_ragged_splits_match_plain(cuda_device, dtype, m, k, n):
+    from repro_torch.kernels._plan import skinny_plan, skinny_route, sm_count
+    from repro_torch.kernels.matmul import launch_skinny
+
+    x = torch.from_numpy(_normal(30, m, k)).to(cuda_device, dtype)
+    w = torch.from_numpy(_normal(31, k, n)).to(cuda_device, dtype)
+    plan = skinny_plan(m, n, k, dtype, sm_count(torch.cuda.current_device()))
+    assert plan.splits * plan.chunk >= k > (plan.splits - 1) * plan.chunk
+    got = (matmul(x, w) if skinny_route(m, n, k, dtype)
+           else launch_skinny(x, w))
+    torch.cuda.synchronize()
+    want = matmul_plain(x, w)
+    if dtype == torch.bfloat16:
+        assert _bf16_rel(got, want) <= BF16_KERNEL_RTOL
+    else:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+# the splits sum in split order (a cluster, or scratch and a second
+# kernel), with no atomics: two launches agree to the bit
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_skinny_launches_are_bit_equal(cuda_device, dtype):
+    from repro_torch.kernels._plan import MAX_CLUSTER, skinny_plan, sm_count
+
+    sms = sm_count(torch.cuda.current_device())
+    # a decode step's small products sum in a cluster; a weight past
+    # SKINNY_LAUNCH_BOUND_BYTES over few strips through scratch
+    shapes = [(8, 2048, 2048), (8, 2048, 512), (8, 65536, 1024)]
+    splits = {skinny_plan(m, n, k, dtype, sms).splits for m, k, n in shapes}
+    assert max(splits) > MAX_CLUSTER and 1 < min(splits) <= MAX_CLUSTER
+    for m, k, n in shapes:
+        x = torch.from_numpy(_normal(32, m, k)).to(cuda_device, dtype)
+        w = torch.from_numpy(_normal(33, k, n)).to(cuda_device, dtype)
+        first, second = matmul(x, w), matmul(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_bf16_conv2d_and_wino_gemm_match_plain(cuda_device):
+    x = torch.from_numpy(_normal(34, 4, 64, 30, 30)).to(cuda_device,
+                                                         torch.bfloat16)
+    w = torch.from_numpy(_normal(35, 32, 64, 3, 3)).to(cuda_device,
+                                                        torch.bfloat16)
+    before = conv2d.launches
+    for padding in ("SAME", "VALID"):
+        got = conv2d(x, w, padding=padding)
+        assert _bf16_rel(got, conv2d_plain(x, w, padding=padding)) \
+            <= BF16_KERNEL_RTOL
+    assert conv2d.launches == before + 2
+    v = torch.from_numpy(_normal(36, 16, 1568, 64)).to(cuda_device,
+                                                        torch.bfloat16)
+    u = torch.from_numpy(_normal(37, 16, 64, 128)).to(cuda_device,
+                                                       torch.bfloat16)
+    before = wino_gemm.launches
+    got = wino_gemm(v, u)
+    assert wino_gemm.launches == before + 1
+    assert _bf16_rel(got, wino_gemm_plain(v, u)) <= BF16_KERNEL_RTOL
+
+
+def test_kernels_refuse_mixed_dtypes_and_misaligned_bf16(cuda_device):
+    x = torch.ones(8, 16, device=cuda_device)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="both operands alike"):
+        matmul(xb, x.t().contiguous())
+    with pytest.raises(TypeError, match="both operands alike"):
+        conv2d(xb.view(1, 8, 4, 4), torch.ones(8, 8, 3, 3,
+                                               device=cuda_device))
+    with pytest.raises(TypeError, match="both operands alike"):
+        wino_gemm(xb[None], x.t().contiguous()[None])
+    # the skinny GEMM's 16-byte copies: no ragged N in bfloat16, no
+    # misaligned operand
+    with pytest.raises(ValueError, match="multiples of 8"):
+        matmul(xb, torch.ones(16, 12, dtype=torch.bfloat16,
+                              device=cuda_device))
+    flat = torch.ones(8 * 16 + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul(flat[1:].view(8, 16), xb.t().contiguous())
