@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: ``nvcc`` compiles the kernels in ``src/repro_torch/kernels/csrc``
-   (``conv2d.cu``, ``gemm.cu``, ``skinny_gemm.cu``; one ``nvcc`` each, all
-   started together) for ``sm_90a`` (into the git-ignored
+   (``conv2d.cu``, ``gemm.cu``, ``skinny_gemm.cu``, ``wino_gemm.cu``; one
+   ``nvcc`` each, all started together) for ``sm_90a`` (into the git-ignored
    ``kernels/build``);
 3. kernel vs plain: each hand-written kernel against its plain PyTorch
    version on the card at every shape the CNN's forward and train step
@@ -17,8 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    at the forward, dIn and dv/du shapes), with its time, the plain
    version's time, one PyTorch library call's time (TF32 off), the
    least time the card could take (f32 operations over the H100's
-   67 TFLOP/s non-tensor peak, or bytes over 3.35 TB/s, whichever is
-   larger) and the share of that bound the kernel reaches; the kernel
+   67 TFLOP/s non-tensor peak -- for Winograd's tile GEMM, which runs f32
+   as 3xTF32, three TF32 products per f32 product over 495 TFLOP/s, the
+   FFMA bound beside it -- or bytes over 3.35 TB/s, whichever is larger)
+   and the share of that bound the kernel reaches; the kernel
    and the library call are also timed queued behind a spin of the card
    (device only) and on the host alone (the launch path); the conv's
    sums are also given per direction (fwd, dIn, dKer); then, the same
@@ -27,9 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the direct conv at the 1x1 and 3x3 layers, Winograd's tile GEMM at
    the 3x3 layers, the tiled GEMM at ``conv1``'s im2col product
    ``[802816,147]@[147,64]``; and one bfloat16 row each for the conv and
-   Winograd's tile GEMM at the 64 -> 64 layer (their wrappers widen bf16
-   operands to f32 and narrow the result once; the widening's own time
-   is printed as ``widen_ms``), held to ``BF16_KERNEL_RTOL``;
+   Winograd's tile GEMM at the 64 -> 64 layer (the conv's wrapper widens
+   bf16 operands to f32 and narrows the result once, the widening's own
+   time printed as ``widen_ms``; the tile GEMM loads bf16 natively),
+   held to ``BF16_KERNEL_RTOL``;
 4. inference at full width: the repro CNN at ResNet-50's 3x3 stage
    widths (channels 64..512, 3 input channels, 1000 classes, batch 64,
    56x56) answers batches of images through ``forward_cnn(dist_mesh=...)``
@@ -131,6 +134,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 F32_PEAK_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+# H100 SXM, TF32 on the tensor cores, dense: Winograd's tile GEMM runs
+# float32 as 3xTF32, three TF32 products per f32 product
+TF32_PEAK_FLOPS = 495e12
 BF16_PEAK_FLOPS = 989e12    # H100 SXM, bfloat16 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 KERNEL_RTOL = 1e-4   # max|kernel - plain| / max|plain|, f32 sums reordered
@@ -293,11 +299,13 @@ def _dtype_terms(*tensors):
 
 
 def compare_kernel(name, kernel, plain, library, args, flops, nbytes,
-                   direction=None, extra=None):
+                   direction=None, extra=None, peak=None):
+    """``peak``: the FLOP/s that bound ``flops``, if not the dtype's."""
     out = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
-    rtol, peak, dtype = _dtype_terms(*args)
+    rtol, dtype_peak, dtype = _dtype_terms(*args)
+    peak = peak or dtype_peak
     check(out.shape == ref.shape and out.dtype == ref.dtype
           and bool(torch.isfinite(out).all()),
           f"{name}: shape {tuple(out.shape)}, dtype {out.dtype} or "
@@ -347,8 +355,8 @@ def conv_row(name, x, w, direction):
 
 def _widen_ms(a, b, out_shape):
     """For bfloat16 operands of a kernel that computes in float32 (the
-    conv, Winograd's tile GEMM): the time of the wrapper's widening of
-    both operands and its narrowing of the float32 output, alone."""
+    conv): the time of the wrapper's widening of both operands and its
+    narrowing of the float32 output, alone."""
     if a.dtype != torch.bfloat16:
         return {}
     out = torch.empty(out_shape, device=a.device)
@@ -368,6 +376,27 @@ def gemm_row(name, kernel, plain, library, a, b, extra=None):
                           extra=extra)
 
 
+def wino_row(name, v, u):
+    """Winograd's tile GEMM (``csrc/wino_gemm.cu``) against its plain
+    version and ``torch.bmm``.  float32 runs as 3xTF32 on the tensor
+    cores: its bound counts three TF32 products per f32 product at
+    ``TF32_PEAK_FLOPS``, the FFMA bound beside it (``ffma_bound_ms``);
+    bfloat16 is one product at the bf16 peak."""
+    from repro_torch.kernels.winograd import (wino_gemm, wino_gemm_einsum,
+                                              wino_gemm_plain)
+
+    if v.dtype != torch.float32:
+        return gemm_row(name, wino_gemm, wino_gemm_plain, wino_gemm_einsum,
+                        v, u)
+    t, m, r = v.shape
+    flops = 2.0 * t * m * r * u.shape[2]
+    nbytes = 4.0 * t * (m * r + r * u.shape[2] + m * u.shape[2])
+    return compare_kernel(name, wino_gemm, wino_gemm_plain,
+                          wino_gemm_einsum, (v, u), 3 * flops, nbytes,
+                          extra={"ffma_bound_ms": bound(flops, nbytes)[0]},
+                          peak=TF32_PEAK_FLOPS)
+
+
 def kernel_phase(device):
     """Every kernel at every shape of the CNN; returns, per kernel, all
     rows and the rows of one train step on its mode's path (``static``
@@ -375,8 +404,6 @@ def kernel_phase(device):
     conv rows of one dist-path forward."""
     from repro_torch.kernels.conv2d import conv2d, conv2d_plain
     from repro_torch.kernels.matmul import matmul, matmul_plain
-    from repro_torch.kernels.winograd import (wino_gemm, wino_gemm_einsum,
-                                              wino_gemm_plain)
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -426,9 +453,8 @@ def kernel_phase(device):
                 ("dIn fwd", (16, pin, k), (16, k, c), True),
                 ("dv", (16, p, k), (16, k, c), False),
                 ("du", (16, c, p), (16, p, k), False)]:
-            row = gemm_row(f"wino_gemm {what} [16,{tpc[1]},{tpc[2]}]@"
+            row = wino_row(f"wino_gemm {what} [16,{tpc[1]},{tpc[2]}]@"
                            f"[16,{tck[1]},{tck[2]}] (C={c} K={k} H={h})",
-                           wino_gemm, wino_gemm_plain, wino_gemm_einsum,
                            rand(*tpc), rand(*tck))
             rows["wino_gemm"].append(row)
             if on_path:
@@ -450,9 +476,10 @@ def kernel_phase(device):
             path["matmul"].append(row)
     rows["conv2d"] += path["conv2d"]
 
-    # bfloat16: the conv and Winograd's tile GEMM widen bf16 operands to
-    # f32 in the wrapper and narrow the result once (the reference's
-    # arithmetic); one row each at the 64 -> 64 layer at 56x56
+    # bfloat16, one row each at the 64 -> 64 layer at 56x56: the conv
+    # widens bf16 operands to f32 in the wrapper and narrows the result
+    # once (the reference's arithmetic); Winograd's tile GEMM loads bf16
+    # natively
     c, k, h = conv_layers()[1]
     bf = torch.bfloat16
     bf16 = {"conv2d": conv_row(
@@ -460,10 +487,9 @@ def kernel_phase(device):
         rand(BATCH, c, h + 2, h + 2).to(bf), rand(k, c, 3, 3).to(bf), "fwd")}
     p = BATCH * (h // 2) ** 2
     v, u = rand(16, p, c).to(bf), rand(16, c, k).to(bf)
-    bf16["wino_gemm"] = gemm_row(
+    bf16["wino_gemm"] = wino_row(
         f"wino_gemm fwd bf16 [16,{p},{c}]@[16,{c},{k}] (C={c} K={k} H={h})",
-        wino_gemm, wino_gemm_plain, wino_gemm_einsum, v, u,
-        extra=_widen_ms(v, u, (16, p, k)))
+        v, u)
     return rows, path, conv_infer, bf16
 
 
@@ -476,8 +502,6 @@ def resnet50_phase(device):
     from repro_torch.core.problem import resnet50_layers
     from repro_torch.kernels.conv2d import conv2d, conv2d_plain
     from repro_torch.kernels.matmul import matmul, matmul_plain
-    from repro_torch.kernels.winograd import (wino_gemm, wino_gemm_einsum,
-                                              wino_gemm_plain)
 
     gen = torch.Generator().manual_seed(SEED + 3)
 
@@ -500,9 +524,8 @@ def resnet50_phase(device):
             del x, wt
         if r == 3 and p.sh == 1:
             tiles = n * (-(-h // 2)) * (-(-w // 2))
-            rows["wino_gemm"].append(gemm_row(
+            rows["wino_gemm"].append(wino_row(
                 f"resnet50 {name} wino_gemm [16,{tiles},{c}]@[16,{c},{k}]",
-                wino_gemm, wino_gemm_plain, wino_gemm_einsum,
                 rand(16, tiles, c), rand(16, c, k)))
         if p.sh > 1:   # conv1's im2col product: patches @ kernel rows
             m, kk = n * h * w, c * r * r
@@ -1575,6 +1598,8 @@ def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
             for key in d:
                 d[key] += r[key]
     extra = {"ms_by_direction": by_direction} if by_direction else {}
+    if all("ffma_bound_ms" in r for r in path_rows):
+        extra["ffma_bound_ms"] = sum(r["ffma_bound_ms"] for r in path_rows)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "jax_function": jax_function,
             "launches": launches, "launches_by_path": by_path,
@@ -1677,17 +1702,18 @@ def main() -> int:
              serve_rows=[r["shape"] for r in serve_rows["tile"]]),
         skinny_entry(serve_rows["skinny"], serve_step,
                      serve["skinny_gemm"]["serve_bf16"], skinny),
-        kernel_entry("wino_gemm", "src/repro_torch/kernels/csrc/gemm.cu",
+        kernel_entry("wino_gemm",
+                     "src/repro_torch/kernels/csrc/wino_gemm.cu",
                      "src/repro/kernels/winograd.py:79", "wino_gemm_pallas",
                      rows["wino_gemm"], path["wino_gemm"],
                      train["winograd"]["wino_gemm"], by_path("wino_gemm")),
     ]
-    for entry in kernels:   # the bf16 rows of the widening wrappers
+    for entry in kernels:   # the bf16 rows of the conv and the tile GEMM
         name = {"conv2d_direct": "conv2d"}.get(entry["name"], entry["name"])
         if name in bf16:
             entry["bfloat16"] = {key: bf16[name][key] for key in (
                 "shape", "rel_err", "kernel_ms", "kernel_device_ms",
-                "library_ms", "bound_ms", "widen_ms")}
+                "library_ms", "bound_ms", "widen_ms") if key in bf16[name]}
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

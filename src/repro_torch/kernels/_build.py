@@ -39,6 +39,7 @@ SIGNATURES = {
     "repro_gemm_f32": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "repro_conv2d_f32": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "repro_skinny_gemm": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "repro_wino_gemm": [_P, _P, _P, _P] + [_I] * 9 + [_P],
 }
 
 

@@ -1,7 +1,8 @@
-"""The launch plan of the tile GEMM core (``csrc/tile_gemm.cuh``), shared
-by both of its wrappers: ``matmul.launch_gemm`` (``[T,M,K] @ [T,K,N]``)
-and ``conv2d.conv2d`` (the implicit GEMM with ``M = N*Ho*Wo`` rows,
-``K`` columns and a reduction of ``R = C*kh*kw``).
+"""The launch plans of the hand-written kernels: first the tile GEMM core
+(``csrc/tile_gemm.cuh``), shared by both of its wrappers:
+``matmul.launch_gemm`` (``[M,K] @ [K,N]``) and ``conv2d.conv2d`` (the
+implicit GEMM with ``M = N*Ho*Wo`` rows, ``K`` columns and a reduction of
+``R = C*kh*kw``).
 
 One pure function, :func:`gemm_plan`, picks the tile and cuts the
 reduction:
@@ -50,6 +51,17 @@ blocks per SM lost 10-20% in bfloat16, and a two-slab floor was best for
 granite-moe's small expert products; the float32 skinny route beat the
 tile core at every llama width at M = 8, 16 and 32, and lost at two of
 four at M = 64.
+
+Winograd's tile GEMM, ``csrc/wino_gemm.cu``, has the third,
+:func:`wino_plan`: one tile of 128 x 64 (two blocks per SM), the
+reduction cut into whole slabs until the card holds at most
+:data:`WINO_BLOCKS_PER_SM` blocks per SM, no chunk shorter than
+:data:`WINO_MIN_SLABS` slabs.  The constants come from
+``tools/wino_sweep.py`` on an H100: over du's seven products (the only
+ones that split) four blocks per SM -- two waves of the two that fit
+an SM -- beat two by 8% in float32 and tied in bfloat16; the chunk
+floor moved nothing beyond the spread; and a 128 x 128 tile of 16 warps
+lost to 128 x 64 over the step's products in both dtypes.
 """
 
 from __future__ import annotations
@@ -159,3 +171,56 @@ def skinny_plan(m: int, n: int, k: int, dtype, sms: int = 132) -> SkinnyPlan:
     return SkinnyPlan(SKINNY_STRIP, slab, rows, splits, per * slab,
                       (_cdiv(n, SKINNY_STRIP), _cdiv(m, rows), splits),
                       m * n * splits if splits > MAX_CLUSTER else 0)
+
+
+# ---- Winograd's batched tile GEMM (csrc/wino_gemm.cu) ---------------------
+
+WINO_TILE = (128, 64)    # rows, columns of a block (wino_gemm.cu: Tile)
+WINO_STAGES = 3          # slabs in its ring
+WINO_SLAB_BYTES = 128    # reduction bytes per slab row: 32 f32, 64 bf16
+WINO_BLOCKS_PER_SM = 4
+WINO_MIN_SLABS = 4
+SMEM_PER_BLOCK = 227 * 1024  # the H100's shared memory per block
+
+
+class WinoPlan(NamedTuple):
+    tile: tuple   # (rows, columns) of the block tile: WINO_TILE
+    slab: int     # reduction indices per slab
+    splits: int   # reduction chunks, each non-empty
+    chunk: int    # reduction indices per chunk, whole slabs
+    grid: tuple   # (M tiles, N tiles, T * splits)
+    scratch: int  # floats of split scratch: 0 for one split or a cluster
+    smem: int     # bytes of dynamic shared memory per block
+
+
+def wino_smem_bytes(dtype) -> int:
+    """A block's dynamic shared memory in ``wino_gemm.cu`` (``Cfg``): the
+    ring of ``[BM][BK + 16 bytes]`` and ``[BK][BN + 8]`` slabs, or the
+    ``[BM][BN + 8]`` float32 output tile if larger."""
+    bm, bn = WINO_TILE
+    size = dtype.itemsize
+    bk = WINO_SLAB_BYTES // size
+    stage = (bm * (bk + 16 // size) + bk * (bn + 8)) * size
+    return max(WINO_STAGES * stage, bm * (bn + 8) * 4)
+
+
+@functools.lru_cache(maxsize=4096)
+def wino_plan(t: int, m: int, n: int, r: int, dtype,
+              sms: int = 132) -> WinoPlan:
+    """The launch of ``wino_gemm.cu`` for ``[t, m, r] @ [t, r, n]`` in
+    ``dtype`` (float32 or bfloat16) on a card with ``sms`` SMs: 128 x 64
+    tiles, the reduction cut into chunks of whole slabs until the card
+    has at most :data:`WINO_BLOCKS_PER_SM` blocks per SM, no chunk
+    shorter than :data:`WINO_MIN_SLABS` slabs."""
+    tm, tn = WINO_TILE
+    slab = WINO_SLAB_BYTES // dtype.itemsize
+    slabs = max(1, _cdiv(r, slab))
+    tiles = t * _cdiv(m, tm) * _cdiv(n, tn)
+    splits = max(1, min(WINO_BLOCKS_PER_SM * sms // tiles,
+                        slabs // WINO_MIN_SLABS, GRID_YZ_MAX // t))
+    per = _cdiv(slabs, splits)
+    splits = _cdiv(slabs, per)  # every chunk non-empty
+    return WinoPlan(WINO_TILE, slab, splits, per * slab,
+                    (_cdiv(m, tm), _cdiv(n, tn), t * splits),
+                    t * m * n * splits if splits > MAX_CLUSTER else 0,
+                    wino_smem_bytes(dtype))

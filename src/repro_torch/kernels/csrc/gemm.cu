@@ -2,24 +2,22 @@
 //
 //   out[t] = a[t] @ b[t]    a [T,M,K], b [T,K,N], out [T,M,N], row-major,
 //
-// f32 accumulation in registers, IEEE FFMA (no TF32), result in f32.  One
-// kernel replaces two Pallas kernels, each through its own wrapper:
+// f32 accumulation in registers, IEEE FFMA (no TF32), result in f32.
 //
-// * src/repro/kernels/winograd.py::wino_gemm_pallas (kernel body
-//   _wino_gemm_kernel), T = 16 frequencies of Winograd F(2x2,3x3)
-//   (kernels/winograd.py::wino_gemm);
-// * src/repro/kernels/matmul.py::matmul_pallas (kernel body
-//   _matmul_kernel), T = 1 (kernels/matmul.py::matmul).
+// Replaces: src/repro/kernels/matmul.py::matmul_pallas (kernel body
+// _matmul_kernel), as the float32 route of kernels/matmul.py::matmul for
+// products of more than _plan.SKINNY_M rows, at T = 1 (csrc/skinny_gemm.cu
+// is the other route).  The C entry takes T batch entries; Winograd's
+// batched tile GEMM is csrc/wino_gemm.cu.
 //
-// The Pallas kernels walk their grids -- (16, P/bp, K/bk, C/bc) and
-// (M/bm, N/bn, K/bk) -- in order on one TPU core and keep each output
-// block in a VMEM f32 scratch while the reduction blocks stream past it.
-// Blocks on a GPU run in parallel and in no order: here the output tile
-// is blockIdx.(x, y), the batch entry and the reduction split
-// blockIdx.z, and the sequential reduction axis a loop inside the block.
-// The Pallas blocks must divide the extents; here ragged edges are
-// zero-filled by the copies, so any M, N, K work (the 1000-class head
-// included).
+// The Pallas kernel walks its grid (M/bm, N/bn, K/bk) in order on one TPU
+// core and keeps each output block in a VMEM f32 scratch while the
+// reduction blocks stream past it.  Blocks on a GPU run in parallel and
+// in no order: here the output tile is blockIdx.(x, y), the batch entry
+// and the reduction split blockIdx.z, and the sequential reduction axis a
+// loop inside the block.  The Pallas blocks must divide the extents; here
+// ragged edges are zero-filled by the copies, so any M, N, K work (the
+// 1000-class head included).
 //
 // The main loop is the shared tile core (csrc/tile_gemm.cuh): a 4-slab
 // cp.async ring, a 128x128 tile with 8x8 outputs per thread or a 64x64
@@ -29,25 +27,19 @@
 // copies when its rows are 16-byte aligned (N % 4 == 0), else 4-byte
 // copies.
 //
-// What bounds it on this card: the Winograd forward shapes
-// ([16, 64*ceil(Ho/2)^2, C] @ [16, C, K], C, K in 64..512) do 2*16*P*C*K
-// FLOPs on 4*16*(PC + CK + PK) bytes: the 64 -> 64 layer at 56x56 is bound
-// by bytes (0.12 ms at 3.35 TB/s), the wider ones by f32 FFMA
-// (67 TFLOP/s); the 8x8 register tile feeds 64 FMAs from 4 shared-memory
-// float4 loads.  The classifier head, [64,512] @ [512,1000], is 65.5
-// MFLOP, about 1 us of FFMA work over 16 output tiles of 64x64: launch
-// latency and the host's time per call bound it.  The plan
-// (kernels/_plan.py) splits its reduction 8 ways, and the 8 splits of a
-// tile sum in a thread-block cluster: one launch, no scratch.  Long thin
-// products -- Winograd's dU, the im2col candidate's dKer product
-// [9C, N*H*W] @ [N*H*W, K] -- split until the card has about four blocks
-// per SM and sum through scratch.  bfloat16: the matmul wrapper sends
-// bf16 products to csrc/skinny_gemm.cu, and wino_gemm's wrapper widens
-// bf16 operands to f32 (exact), runs this kernel and narrows the output
-// once, the reference's arithmetic.  Left for a later PR: 3xTF32 on the
-// tensor cores (wgmma with TMA-staged operands and an mbarrier ring),
-// which changes the IEEE f32 contract and needs its own tolerance
-// argument; native bf16 loaders for Winograd.
+// What bounds it on this card: the classifier head, [64,512] @
+// [512,1000], is 65.5 MFLOP, about 1 us of FFMA work over 16 output tiles
+// of 64x64: launch latency and the host's time per call bound it.  The
+// plan (kernels/_plan.py) splits its reduction 8 ways, and the 8 splits
+// of a tile sum in a thread-block cluster: one launch, no scratch.  Long
+// thin products -- the im2col candidate's dKer product [9C, N*H*W] @
+// [N*H*W, K] -- split until the card has about four blocks per SM and
+// sum through scratch.  The LM prefill products (M = 64 rows against
+// weights of 0.5-16 M elements) are bound by f32 FFMA (67 TFLOP/s).
+// bfloat16 products take csrc/skinny_gemm.cu.  Left for a later PR:
+// 3xTF32 on the tensor cores for this route too (csrc/wino_gemm.cu's
+// arithmetic, which wins the im2col dKer product at T = 1:
+// tools/wino_sweep.py).
 
 #include "tile_gemm.cuh"
 

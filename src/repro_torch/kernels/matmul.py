@@ -12,7 +12,7 @@ shape and dtype (``_plan.skinny_route``):
   ones with at most ``_plan.SKINNY_M`` rows (FFMA) -- a decode step's
   products, bound by the bytes of the weight;
 * ``csrc/gemm.cu`` at one batch entry (:func:`launch_gemm`, the tile
-  core, which is also Winograd's tile GEMM): every other float32 product.
+  core): every other float32 product.
 """
 
 from __future__ import annotations
@@ -26,18 +26,12 @@ from repro_torch.kernels._plan import (gemm_plan, skinny_plan, skinny_route,
 
 
 def launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch ``repro_gemm_f32`` on checked CUDA operands, ``[M,K] @
-    [K,N]`` as one batch entry or ``[T,M,K] @ [T,K,N]``, with the tile
-    and the split reduction of :func:`~repro_torch.kernels._plan.gemm_plan`
-    (and its scratch)."""
+    """Launch ``repro_gemm_f32`` on checked CUDA operands ``[M,K] @
+    [K,N]`` as one batch entry, with the tile and the split reduction of
+    :func:`~repro_torch.kernels._plan.gemm_plan` (and its scratch)."""
     lib = _build.load()
-    n = b.shape[-1]
-    if a.dim() == 3:
-        t, m, k = a.shape
-        out = a.new_empty(t, m, n)
-    else:
-        t, (m, k) = 1, a.shape
-        out = a.new_empty(m, n)
+    t, (m, k), n = 1, a.shape, b.shape[1]
+    out = a.new_empty(m, n)
     plan = gemm_plan(t, m, n, k, sm_count(a.get_device()))
     scratch = a.new_empty(plan.scratch) if plan.scratch else None
     _build.check(lib, lib.repro_gemm_f32(

@@ -23,7 +23,8 @@ The conv menu:
 The matmul menu is ``pallas`` (the hand-written GEMM,
 ``kernels.matmul``) vs ``xla`` (``torch.matmul``); Winograd's batched
 tile GEMM has its own ``pallas`` (``kernels.winograd.wino_gemm``, the
-hand-written kernel) / ``einsum`` (``torch.bmm``) menu.  The candidate
+hand-written tensor-core kernel ``csrc/wino_gemm.cu``) / ``einsum``
+(``torch.bmm``) menu.  The candidate
 names stay the JAX package's, so each counterpart is easy to find.
 
 Each hand-written kernel runs inside a ``torch.autograd.Function`` whose

@@ -10,16 +10,16 @@ multiplies than the direct 3x3 conv.
 The transforms are small dense contractions left as torch code
 (differentiable through autograd), as the JAX package leaves them to jnp
 outside any Pallas kernel.  The batched tile GEMM is the hand-written
-CUDA kernel in ``csrc/gemm.cu`` (which replaces the Pallas
-``wino_gemm_pallas``, and at one batch entry ``matmul_pallas``):
-:func:`wino_gemm` launches it on a CUDA tensor and runs
-:func:`wino_gemm_plain`, its plain PyTorch version, on a CPU tensor,
-with no fallback between the two.  The kernel computes in float32:
-bfloat16 card operands are widened in the wrapper (exact) and the result
-narrowed once, the reference's arithmetic (see ``kernels/conv2d.py``;
-native bfloat16 loaders wait for a later slice).  :func:`wino_gemm_einsum` is
-the GEMM's library backend (the JAX package's XLA einsum).  The GEMM
-callable of :func:`conv2d_winograd` is injected by ``kernels.ops``.
+CUDA kernel in ``csrc/wino_gemm.cu``, which replaces the Pallas
+``wino_gemm_pallas`` on Hopper's tensor cores: float32 as 3xTF32
+(``mma.sync`` m16n8k8, each operand split into two TF32 halves, three
+products, f32 sums) and bfloat16 natively (m16n8k16, f32 sums, one
+rounding), with no widening in the wrapper.  :func:`wino_gemm`
+launches it on a CUDA tensor and runs :func:`wino_gemm_plain`, its
+plain PyTorch version, on a CPU tensor, with no fallback between the
+two.  :func:`wino_gemm_einsum` is the GEMM's library backend (the JAX
+package's XLA einsum).  The GEMM callable of :func:`conv2d_winograd` is
+injected by ``kernels.ops``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import forward_only
-from repro_torch.kernels.matmul import launch_gemm
+from repro_torch.kernels import _build
+from repro_torch.kernels._plan import sm_count, wino_plan
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray 2015, Sec. 4).
 _BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
@@ -61,8 +62,37 @@ def wino_gemm_einsum(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.bmm(v.float(), u.float()).to(v.dtype)
 
 
+def launch_wino_gemm(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Launch ``repro_wino_gemm`` on checked CUDA operands ``[T,M,R] @
+    [T,R,N]`` of one dtype (float32 or bfloat16), with the plan of
+    :func:`~repro_torch.kernels._plan.wino_plan` (and its scratch).
+    Raises on bfloat16 that its 16-byte copies cannot take: R or N not a
+    multiple of 8, or an operand not 16-byte aligned."""
+    lib = _build.load()
+    t, m, r = v.shape
+    n = u.shape[2]
+    bf16 = v.dtype == torch.bfloat16
+    if bf16 and (r % 8 or n % 8):
+        raise ValueError(f"the bfloat16 wino_gemm needs R and N multiples "
+                         f"of 8, got {tuple(v.shape)} @ {tuple(u.shape)}")
+    if bf16 and (v.data_ptr() % 16 or u.data_ptr() % 16):
+        raise ValueError("the bfloat16 wino_gemm needs 16-byte aligned "
+                         "operands")
+    plan = wino_plan(t, m, n, r, v.dtype, sm_count(v.get_device()))
+    out = v.new_empty(t, m, n)
+    scratch = (v.new_empty(plan.scratch, dtype=torch.float32)
+               if plan.scratch else None)
+    _build.check(lib, lib.repro_wino_gemm(
+        v.data_ptr(), u.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, int(bf16),
+        t, m, n, r, *plan.tile, plan.splits, plan.chunk,
+        _build.stream_handle(v)), "wino_gemm")
+    return out
+
+
 def wino_gemm(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """``[T,P,C] @ [T,C,K] -> [T,P,K]`` (v.dtype), f32 accumulation.
+    """``[T,P,C] @ [T,C,K] -> [T,P,K]`` (v.dtype), f32 accumulation; on the
+    card float32 or bfloat16, both operands of one dtype.
 
     ``wino_gemm.launches`` counts the kernel's launches."""
     forward_only(v, u)
@@ -81,10 +111,9 @@ def wino_gemm(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
                         f"both operands alike, got {v.dtype} @ {u.dtype}")
     if not (v.is_contiguous() and u.is_contiguous()):
         raise ValueError("the CUDA wino_gemm takes contiguous operands")
-    # bfloat16: widened exactly, the float32 kernel, one rounding
-    out = launch_gemm(v.float(), u.float())
+    out = launch_wino_gemm(v, u)
     wino_gemm.launches += 1
-    return out.to(v.dtype)
+    return out
 
 
 wino_gemm.launches = 0

@@ -272,3 +272,58 @@ def test_gemm_plan_covers_the_reduction_and_fills_the_card(kind, shape):
         assert blocks >= SMS
     if kind == "head":  # more blocks than the 16 and 8 tiles unsplit
         assert blocks > {1000: 16, 512: 8}[n]
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of Winograd's tile GEMM (csrc/wino_gemm.cu) at every wino
+# case above, plus ragged and empty-reduction cases, in both dtypes
+# ---------------------------------------------------------------------------
+
+WINO_PLAN_CASES = [c for c in PLAN_CASES if c[0].startswith("wino")] + [
+    ("wino ragged", "gemm", (16, 130, 72, 136)),
+    ("wino ragged unaligned", "gemm", (4, 129, 30, 66)),
+    ("wino tiny", "gemm", (2, 7, 5, 3)),
+    ("wino empty reduction", "gemm", (2, 20, 16, 0)),
+    ("wino du dIn 64->64 H=56", "gemm", (16, 64, 64, 64 * 29 * 29))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [c[2] for c in WINO_PLAN_CASES],
+                         ids=[c[0] for c in WINO_PLAN_CASES])
+def test_wino_plan_covers_the_output_and_the_reduction(shape, dtype):
+    from repro_torch.kernels import _plan
+
+    dtype = getattr(torch, dtype)
+    t, m, n, r = shape
+    plan = _plan.wino_plan(t, m, n, r, dtype, sms=SMS)
+    tm, tn = plan.tile
+    assert plan.tile == _plan.WINO_TILE == (128, 64)
+    assert plan.slab == 128 // dtype.itemsize
+    # every output row and column in exactly one tile, every batch entry
+    # times every split in one grid z
+    for extent, step, count in ((m, tm, plan.grid[0]),
+                                (n, tn, plan.grid[1])):
+        owner = np.arange(extent) // step
+        assert owner.max() == count - 1
+        assert np.bincount(owner, minlength=count).min() >= 1
+    assert plan.grid[2] == t * plan.splits <= _plan.GRID_YZ_MAX
+    assert plan.grid[1] <= _plan.GRID_YZ_MAX
+    # whole slabs, every chunk non-empty, the last one ending at r
+    assert plan.chunk % plan.slab == 0 and plan.chunk > 0
+    assert plan.splits * plan.chunk >= r
+    assert plan.splits == 1 or (plan.splits - 1) * plan.chunk < r
+    # a split reduction fills the card once, at most
+    tiles = t * plan.grid[0] * plan.grid[1]
+    assert plan.splits == 1 or tiles * plan.splits <= (
+        _plan.WINO_BLOCKS_PER_SM * SMS)
+    # up to MAX_CLUSTER splits sum in a cluster (no scratch), more
+    # through scratch
+    assert plan.scratch == (t * m * n * plan.splits
+                            if plan.splits > _plan.MAX_CLUSTER else 0)
+    # the ring ([128][BK + 16 bytes] and [BK][64 + 8] slabs, 3 stages) or
+    # the [128][72] f32 output tile, whichever is larger: 227 KB a block,
+    # and two blocks (1 KB reserved each) in an SM's 228 KB
+    ring = 3 * (128 * 144 + 128 // dtype.itemsize * 72 * dtype.itemsize)
+    assert plan.smem == max(ring, 128 * 72 * 4) == 82944
+    assert plan.smem <= _plan.SMEM_PER_BLOCK
+    assert 2 * (plan.smem + 1024) <= 228 * 1024

@@ -137,11 +137,37 @@ def test_conv2d_kernel_at_backward_shapes(cuda_device, c, k, h):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
 
 
+# the CNN's seven Winograd layers (C, K, H; the C = 3 layer takes the
+# library) in the four directions the kernel serves (csrc/wino_gemm.cu),
+# (t, p, c, k) at batch b (a multiple of 8 keeps P and P' whole 16-byte
+# vectors of bfloat16): fwd [16,P,C]@[16,C,K], dIn fwd
+# [16,P',K]@[16,K,C], autograd's dv [16,P,K]@[16,K,C] and du
+# [16,C,P]@[16,P,K], P = b ceil(H/2)^2, P' = b ceil((H+2)/2)^2
+WINO_LAYERS = [(64, 64, 56), (64, 128, 28), (128, 128, 28), (128, 256, 14),
+               (256, 256, 14), (256, 512, 7), (512, 512, 7)]
+
+
+def _wino_cnn_shapes(b):
+    shapes = []
+    for c, k, h in WINO_LAYERS:
+        p, pin = b * (-(-h // 2)) ** 2, b * (-(-(h + 2) // 2)) ** 2
+        shapes += [(16, p, c, k), (16, pin, k, c), (16, p, k, c),
+                   (16, c, p, k)]
+    return shapes
+
+
 # (t, p, c, k): CNN forward shapes at batch 2, ragged edges, and the
-# backward's dU product with a long reduction (split over the card)
+# backward's dU product with a long reduction (split over the card); the
+# CNN's shapes at batch 8 in every direction; ragged P, C and K; float32
+# rows that are not whole 16-byte vectors (C or K not a multiple of 4:
+# 4-byte copies and element stores); an empty reduction
 @pytest.mark.parametrize("t,p,c,k", [(16, 1568, 64, 64), (16, 32, 512, 512),
                                      (16, 100, 72, 40), (16, 64, 6272, 64),
-                                     (16, 1568, 64, 128), (2, 7, 3, 5)])
+                                     (16, 1568, 64, 128), (2, 7, 3, 5)]
+                         + _wino_cnn_shapes(8)
+                         + [(16, 130, 136, 72), (3, 257, 40, 200),
+                            (16, 1030, 72, 136), (4, 129, 66, 30),
+                            (16, 1030, 130, 254), (2, 20, 0, 16)])
 def test_wino_gemm_kernel_matches_plain(cuda_device, t, p, c, k):
     v = torch.from_numpy(_normal(14, t, p, c)).to(cuda_device)
     u = torch.from_numpy(_normal(15, t, c, k)).to(cuda_device)
@@ -357,6 +383,53 @@ def test_bf16_conv2d_and_wino_gemm_match_plain(cuda_device):
     got = wino_gemm(v, u)
     assert wino_gemm.launches == before + 1
     assert _bf16_rel(got, wino_gemm_plain(v, u)) <= BF16_KERNEL_RTOL
+    # native bfloat16 (no widening): ragged P, C and K, a split
+    # reduction summed in a cluster and one through scratch
+    for seed, (t, p, c, k) in enumerate([(16, 130, 136, 72), (5, 300, 24, 16),
+                                         (16, 1030, 72, 136),
+                                         (16, 64, 1024, 64),
+                                         (16, 64, 6272, 64)]):
+        v = torch.from_numpy(_normal(60 + seed, t, p, c)).to(
+            cuda_device, torch.bfloat16)
+        u = torch.from_numpy(_normal(70 + seed, t, c, k)).to(
+            cuda_device, torch.bfloat16)
+        got = wino_gemm(v, u)
+        assert got.dtype == torch.bfloat16
+        assert _bf16_rel(got, wino_gemm_plain(v, u)) <= BF16_KERNEL_RTOL
+
+
+@pytest.mark.parametrize("t,p,c,k", _wino_cnn_shapes(8))
+def test_wino_gemm_bf16_matches_plain_at_the_cnn_shapes(cuda_device, t, p,
+                                                        c, k):
+    v = torch.from_numpy(_normal(38, t, p, c)).to(cuda_device,
+                                                   torch.bfloat16)
+    u = torch.from_numpy(_normal(39, t, c, k)).to(cuda_device,
+                                                   torch.bfloat16)
+    before = wino_gemm.launches
+    got = wino_gemm(v, u)
+    torch.cuda.synchronize()
+    assert wino_gemm.launches == before + 1
+    assert _bf16_rel(got, wino_gemm_plain(v, u)) <= BF16_KERNEL_RTOL
+
+
+# du's split reduction: up to MAX_CLUSTER splits sum in a cluster, more
+# through scratch; both in split order, so two launches agree to the bit
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wino_gemm_split_launches_are_bit_equal(cuda_device, dtype):
+    from repro_torch.kernels._plan import MAX_CLUSTER, sm_count, wino_plan
+
+    sms = sm_count(torch.cuda.current_device())
+    splits = []
+    for t, p, c, k in [(16, 64, 1024, 64), (16, 64, 6272, 64),
+                       (16, 256, 3136, 128)]:
+        splits.append(wino_plan(t, p, k, c, dtype, sms).splits)
+        v = torch.from_numpy(_normal(40, t, p, c)).to(cuda_device, dtype)
+        u = torch.from_numpy(_normal(41, t, c, k)).to(cuda_device, dtype)
+        first, second = wino_gemm(v, u), wino_gemm(v, u)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+    assert min(splits) > 1 and any(s <= MAX_CLUSTER for s in splits)
+    assert any(s > MAX_CLUSTER for s in splits)
 
 
 def test_kernels_refuse_mixed_dtypes_and_misaligned_bf16(cuda_device):
@@ -377,3 +450,13 @@ def test_kernels_refuse_mixed_dtypes_and_misaligned_bf16(cuda_device):
     flat = torch.ones(8 * 16 + 1, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte aligned"):
         matmul(flat[1:].view(8, 16), xb.t().contiguous())
+    # wino_gemm: no non-contiguous operand; in bfloat16 no R or N that is
+    # not a multiple of 8, no misaligned operand
+    with pytest.raises(ValueError, match="contiguous"):
+        wino_gemm(x.t()[None], x[None])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        wino_gemm(xb[:, :12].contiguous()[None],
+                  torch.ones(1, 12, 16, dtype=torch.bfloat16,
+                             device=cuda_device))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wino_gemm(flat[1:].view(1, 8, 16), xb.t().contiguous()[None])
