@@ -63,6 +63,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward).  Every mode prints its peak of
    ``torch.cuda.max_memory_allocated`` over the timed steps beside
    ``cnn_train_mem_elems(...)["peak"] * 4``;
+5b. resilient training at full width, the same CNN and batch, static
+   plan, on the grid ``grid="auto"`` picks for one card: run C,
+   ``dist.train.make_resilient_train_loop`` in process for 8 steps
+   without a fault, its launches equal to phase 5's static count per
+   step; the train state's checkpoint (bytes, a synchronous save, an
+   async save's time in the caller and to its commit, a restore onto the
+   card, bit-equal); run A, ``python -m repro_torch.launch.train --mesh
+   dist-grid`` as a subprocess for the same 8 steps, ``--ckpt-every 2``,
+   a ``wedge`` at step 3 (the watchdog fires and saves) and a ``sigterm``
+   at step 5 (it must print ``preempted at step 5``); then
+   ``fault.inject.corrupt_chunk`` on the newest checkpoint; run B, the
+   CLI again: it logs ``corrupt_ckpt``, restores an earlier step and
+   prints ``done at step 8``; the losses of A and B, stitched, within
+   ``RESILIENT_RTOL`` of run C's at every step.  Then, on a one-rank
+   nccl mesh: ``compressed_psum_tree`` (``wire="s8"``, a real int8
+   all-gather) of the card CNN's gradients, equal to the same call on
+   the CPU, and a one-stage ``pipelined_apply``, forward and gradients,
+   equal to the stage run plainly.  Run C's step p50 is printed beside
+   phase 5's static p50;
 6. warm: ``kernels.autotune.warm(batch=64, refresh=True)`` against a
    plan table in a temporary directory; each layer's winner and every
    candidate's ms, every hand-written candidate timed, the winners
@@ -120,6 +139,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -164,6 +184,13 @@ PARAM_LR_TOL = 1e-3
 MOMENT_RTOL = 1e-5
 MODES = ("static", "winograd", "tuned")
 SG_MODE = "static_sg"   # mode static with save_gathered=True
+# phase 5b: the resilient loop, through the loop and through the CLI
+RESILIENT_STEPS, RESILIENT_CKPT_EVERY = 8, 2
+RESILIENT_WATCHDOG_S, RESILIENT_WEDGE_S = 0.5, 1.5
+RESILIENT_WEDGE_AT, RESILIENT_SIGTERM_AT = 3, 5
+RESILIENT_RTOL = 5e-4   # stitched losses vs uninterrupted, the reference's
+COMPRESS_RTOL = 1e-6    # s8 compression, card vs CPU: the same IEEE ops
+PIPE_RTOL = 1e-5        # one-stage pipeline vs the stage, the reference's
 # phase 8: LM serving at the published widths, f32, on the (1,1,1) grid
 SERVE_ARCH, MOE_ARCH = "llama3.2-1b", "granite-moe-1b-a400m"
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_GEN = 8, 16, 32
@@ -1153,7 +1180,261 @@ def train_phase(card):
         check(upd["loss"] <= LOSS_RTOL and upd["params_lr"] <= PARAM_LR_TOL
               and upd["moments"] <= MOMENT_RTOL,
               f"train mode {mode}: the steps vs a plain AdamW: {upd}")
-    return {mode: res[mode]["launches"] for mode in MODES + (SG_MODE,)}
+    return ({mode: res[mode]["launches"] for mode in MODES + (SG_MODE,)},
+            statistics.median(res["static"]["step_ms"]))
+
+
+# --------------------------------------------------------------------------
+# Phase 5b: resilient training at full width
+# --------------------------------------------------------------------------
+
+def _resilient_inputs(device):
+    """The CLI's parameters and batches: ``init_cnn`` from a generator
+    seeded 0, ``make_synthetic_cnn_batches`` with seed 0."""
+    from repro_torch.dist.train import make_synthetic_cnn_batches
+    from repro_torch.models.cnn import init_cnn
+
+    def init():
+        return init_cnn(torch.Generator().manual_seed(0), channels=CHANNELS,
+                        n_classes=N_CLASSES, in_channels=IN_CHANNELS,
+                        device=device)
+    return init, make_synthetic_cnn_batches(
+        (BATCH, IN_CHANNELS, HW, HW), N_CLASSES, device=device)
+
+
+def _resilient_rank(rank):
+    """Run C: ``make_resilient_train_loop`` on the grid ``grid="auto"``
+    picks for one card, static plan, no fault; the kernels' launches over
+    its steps and the loop's report (the state stays on the card)."""
+    from repro_torch.dist.train import (ResilienceConfig,
+                                        make_resilient_train_loop)
+    from repro_torch.kernels.autotune import autotune_disabled
+    from repro_torch.train.optim import AdamW
+
+    init, batches = _resilient_inputs("cuda")
+    run = make_resilient_train_loop(AdamW(lr=TRAIN_LR), ResilienceConfig(),
+                                    grid="auto", device="cuda")
+    with autotune_disabled():
+        _zero_counts()
+        report = run(init, batches, RESILIENT_STEPS)
+        torch.cuda.synchronize()
+        report["launches"] = _launch_counts()
+    return report
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def _ckpt_times(state, root):
+    """Bytes of one checkpoint of the train state, a synchronous save, an
+    async save's time in the caller and to its commit, and a restore onto
+    the card, bit-equal."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.ckpt.checkpointer import CheckpointManager, restore
+
+    mgr = CheckpointManager(root, keep=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state, 1)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mgr.save(state, 2, async_=True)
+    async_caller_ms = (time.perf_counter() - t0) * 1e3
+    mgr.wait()
+    async_total_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    restored, step = restore(state, mgr._dir(2))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(step == 2, f"restored step {step}, saved 2")
+    check(all(torch.equal(a, b) and a.device == b.device
+              if isinstance(a, torch.Tensor) else a == b
+              for a, b in zip(pytree.tree_leaves(restored),
+                              pytree.tree_leaves(state))),
+          "the restored train state differs from the saved one")
+    return {"bytes": _dir_bytes(mgr._dir(2)), "sync_save_ms": sync_ms,
+            "async_save_caller_ms": async_caller_ms,
+            "async_save_commit_ms": async_total_ms,
+            "restore_ms": restore_ms}
+
+
+def _cli(args, ckpt_dir, plan=None):
+    """``python -m repro_torch.launch.train --mesh dist-grid`` on this
+    card at the phase's widths (static plan); its output and wall s."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mesh",
+           "dist-grid", "--ranks", "1", "--steps", str(RESILIENT_STEPS),
+           "--batch", str(BATCH), "--channels", ",".join(map(str, CHANNELS)),
+           "--in-channels", str(IN_CHANNELS), "--hw", str(HW), "--classes",
+           str(N_CLASSES), "--lr", str(TRAIN_LR), "--ckpt-dir", ckpt_dir,
+           "--ckpt-every", str(RESILIENT_CKPT_EVERY)] + args
+    if plan is not None:
+        cmd += ["--fault-plan", plan.to_json()]
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               REPRO_TORCH_AUTOTUNE="0")
+    env.pop("REPRO_FAULT_PLAN", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the trainer's CLI failed:\n{proc.stdout}"
+          f"\n{proc.stderr[-4000:]}")
+    losses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"\[resilient\] step (\d+) loss ([0-9.]+)", proc.stdout)}
+    events = re.findall(r"\[fault\] (\w+)@(\d+)", proc.stdout)
+    return proc.stdout, losses, [(k, int(s)) for k, s in events], wall_s
+
+
+def _card_grads(state, batches):
+    """The card CNN's gradients at ``state``'s parameters on batch 0
+    (dense path, static plan)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels.autotune import autotune_disabled
+    from repro_torch.models.cnn import loss_cnn
+
+    leaves, spec = pytree.tree_flatten(state.params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    with autotune_disabled():
+        loss = loss_cnn(pytree.tree_unflatten(leaves, spec), batches(0))
+        return [g.detach().cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+def _compress_pipe_rank(rank, grads, device):
+    """``compressed_psum_tree`` (s8) of ``grads`` and a one-stage
+    ``pipelined_apply`` with its gradients, on a one-rank mesh on
+    ``device`` (nccl on the card, gloo on the CPU)."""
+    from repro_torch.dist.collectives import make_mesh, record_collectives
+    from repro_torch.dist.compress import compressed_psum_tree
+    from repro_torch.dist.pipeline import pipelined_apply
+
+    mesh = make_mesh((1,), ("pod",), device=device)
+    g = [t.to(device) for t in grads]
+    with record_collectives() as notes:
+        red, err = compressed_psum_tree(g, mesh, "pod", None, wire="s8")
+    out = {"red": [t.cpu() for t in red], "err": [t.cpu() for t in err],
+           "notes": [(n.kind, n.tag, n.itemsize) for n in notes]}
+    if device == "cuda":
+        gen = torch.Generator().manual_seed(SEED + 5)
+        w = (torch.randn(1, 512, 512, generator=gen) * 512 ** -0.5).to(device)
+        b = (torch.randn(1, 512, generator=gen) * 0.1).to(device)
+        x = torch.randn(4, 64, 512, generator=gen).to(device)
+        gy = torch.randn(4, 64, 512, generator=gen).to(device)
+
+        def stage(p, h):
+            return torch.tanh(h @ p["w"] + p["b"])
+
+        params = {"w": w.requires_grad_(True), "b": b.requires_grad_(True)}
+        xg = x.clone().requires_grad_(True)
+        y = pipelined_apply(stage, params, xg, mesh, axis="pod")
+        got = (y, *torch.autograd.grad((y * gy).sum(), (w, b, xg)))
+        w2, b2, x2 = (t.detach().clone().requires_grad_(True)
+                      for t in (w, b, x))
+        y2 = torch.stack([stage({"w": w2[0], "b": b2[0]}, x2[m])
+                          for m in range(x2.shape[0])])
+        want = (y2, *torch.autograd.grad((y2 * gy).sum(), (w2, b2, x2)))
+        out["pipe_err"] = max(_grad_err([a.detach().cpu()], [c.detach().cpu()])
+                              for a, c in zip(got, want))
+    return out
+
+
+def resilient_phase(card, static_launches, static_p50):
+    """Phase 5b: the resilient loop at the phase-5 CNN's widths."""
+    from repro_torch.dist.spawn import run_spmd
+    from repro_torch.fault.inject import FaultPlan, FaultSpec, corrupt_chunk
+
+    t_phase = time.perf_counter()
+    # run C, in process, uninterrupted
+    rep = run_spmd(_resilient_rank, 1)[0]
+    launches = rep["launches"]
+    want = {k: v // TRAIN_STEPS * RESILIENT_STEPS
+            for k, v in static_launches.items()}
+    check(all(v % TRAIN_STEPS == 0 for v in static_launches.values())
+          and launches == want,
+          f"resilient loop launches {launches} != phase 5's static "
+          f"{static_launches} per step x {RESILIENT_STEPS}")
+    check(rep["grid"] == (1, 1, 1, 1, 1) and not rep["preempted"]
+          and len(rep["losses"]) == RESILIENT_STEPS
+          and all(math.isfinite(v) for v in rep["losses"]),
+          f"run C: grid {rep['grid']}, {len(rep['losses'])} losses")
+    loss_c = rep["losses"]
+    step_ms = [s * 1e3 for s in rep["step_s"]]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = _ckpt_times(rep["state"], os.path.join(tmp, "timing"))
+        # run A: the CLI, a wedge (the watchdog saves) and a SIGTERM
+        root = os.path.join(tmp, "ckpt")
+        plan = FaultPlan(faults=(
+            FaultSpec(kind="wedge", step=RESILIENT_WEDGE_AT,
+                      delay_s=RESILIENT_WEDGE_S),
+            FaultSpec(kind="sigterm", step=RESILIENT_SIGTERM_AT)))
+        out_a, loss_a, ev_a, wall_a = _cli(
+            ["--watchdog-timeout", str(RESILIENT_WATCHDOG_S)], root, plan)
+        check(f"preempted at step {RESILIENT_SIGTERM_AT}" in out_a
+              and ("wedge", RESILIENT_WEDGE_AT) in ev_a
+              and sorted(loss_a) == list(range(RESILIENT_SIGTERM_AT)),
+              f"run A:\n{out_a}")
+        # silent corruption of the newest checkpoint (the SIGTERM's)
+        corrupted = corrupt_chunk(root)
+        # run B: the CLI again, falls back past the corrupt step
+        out_b, loss_b, ev_b, wall_b = _cli([], root)
+        start_b = min(loss_b) if loss_b else None
+        check(("corrupt_ckpt", RESILIENT_SIGTERM_AT) in ev_b
+              and start_b is not None and start_b < RESILIENT_SIGTERM_AT
+              and sorted(loss_b) == list(range(start_b, RESILIENT_STEPS))
+              and f"done at step {RESILIENT_STEPS}" in out_b,
+              f"run B:\n{out_b}")
+    stitched = {**loss_a, **loss_b}
+    diffs = [abs(stitched[s] - loss_c[s]) / abs(loss_c[s])
+             for s in range(RESILIENT_STEPS)]
+    # the CLI prints 6 decimals; B's overlap with A is held too
+    overlap = [abs(loss_b[s] - loss_a[s]) / abs(loss_a[s])
+               for s in loss_b if s in loss_a]
+
+    # compression and the pipeline on a one-rank nccl mesh, vs the CPU
+    grads = _card_grads(rep["state"], _resilient_inputs("cuda")[1])
+    card_c = run_spmd(_compress_pipe_rank, 1, grads, "cuda")[0]
+    cpu_c = run_spmd(_compress_pipe_rank, 1, grads, "cpu", device="cpu")[0]
+    compress_err = max(_grad_err(card_c["red"], cpu_c["red"]),
+                       _grad_err(card_c["err"], cpu_c["err"]))
+    phase_s = time.perf_counter() - t_phase
+    summary = {
+        "phase": "resilient", "card": card, "grid": list(rep["grid"]),
+        "channels": CHANNELS, "batch": BATCH, "hw": HW,
+        "n_classes": N_CLASSES, "steps": RESILIENT_STEPS,
+        "launches": launches,
+        "launches_per_step": {k: v / RESILIENT_STEPS
+                              for k, v in launches.items()},
+        "step_ms": step_ms, "p50_step_ms": statistics.median(step_ms),
+        "p50_step_ms_after_first": statistics.median(step_ms[1:]),
+        "static_p50_step_ms_phase5": static_p50,
+        "losses_c": loss_c, "losses_a": [loss_a[s] for s in sorted(loss_a)],
+        "losses_b": [loss_b[s] for s in sorted(loss_b)],
+        "b_restored_step": start_b,
+        "events_a": ev_a, "events_b": ev_b,
+        "corrupted": os.path.basename(corrupted),
+        "max_stitched_rel_diff": max(diffs),
+        "max_overlap_rel_diff": max(overlap, default=0.0),
+        "cli_wall_s": {"a": wall_a, "b": wall_b},
+        "checkpoint": ckpt,
+        "compress_notes": {f"{k} {t} {n}-byte": card_c["notes"].count(
+            (k, t, n)) for k, t, n in sorted(set(card_c["notes"]))},
+        "compress_card_vs_cpu": compress_err,
+        "pipeline_one_stage_err": card_c["pipe_err"],
+        "phase_s": phase_s}
+    print(json.dumps(summary), flush=True)
+    check(max(diffs) <= RESILIENT_RTOL and max(overlap, default=0.0)
+          <= RESILIENT_RTOL,
+          f"stitched losses vs run C: {diffs}, overlap {overlap}")
+    check(("all-gather", "compress_s8", 1) in card_c["notes"],
+          f"no int8 all-gather on the card: {card_c['notes']}")
+    check(compress_err <= COMPRESS_RTOL,
+          f"s8 compression, card vs CPU: {compress_err:.3e}")
+    check(card_c["pipe_err"] <= PIPE_RTOL,
+          f"one-stage pipeline vs the stage: {card_c['pipe_err']:.3e}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1671,7 +1952,8 @@ def main() -> int:
     for name, extra in resnet50_phase(device).items():
         rows[name] += extra
     infer = slice_phase()
-    train = train_phase(card)
+    train, static_p50 = train_phase(card)
+    resilient = resilient_phase(card, train["static"], static_p50)
     warm = warm_phase()
     synthesis_phase()
     serve_rows, serve_step = serve_kernel_phase(device)
@@ -1682,6 +1964,7 @@ def main() -> int:
         counts = {"infer": infer.get(name, 0),
                   **{f"train_{m}": train[m][name]
                      for m in MODES + (SG_MODE,)},
+                  "train_resilient": resilient[name],
                   "warm": warm[name]}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts

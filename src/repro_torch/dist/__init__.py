@@ -27,8 +27,13 @@ the experts on the contraction ring (``expert_ffn_distributed``);
 ``lm_serve_comm_elems`` / ``lm_serve_mem_elems`` account a serving step
 and ``core.sharding_synthesis.synthesize_serve_grid`` picks its grid.
 
-The microbatch pipeline (``pipelined_apply``) and compressed reductions
-of the reference wait for later slices.
+``dist.pipeline.pipelined_apply`` runs stages of a network as a GPipe
+microbatch pipeline over one mesh axis (differentiable by the reverse
+ring), and ``dist.compress.compressed_psum(_tree)`` mean-reduces
+gradients over an axis through an int8 / top-k compressor with error
+feedback, moving int8 on the wire below 8 ranks.  ``dist.train`` also
+holds the fault-tolerant loop around the grid train step
+(``make_resilient_train_loop``).
 """
 
 from repro_torch.dist.collectives import (
@@ -44,6 +49,7 @@ from repro_torch.dist.collectives import (
     ring_zip,
     scatter_axis,
 )
+from repro_torch.dist.compress import compressed_psum, compressed_psum_tree
 from repro_torch.dist.conv2d import (
     conv2d_distributed,
     conv_comm_elems,
@@ -77,6 +83,7 @@ from repro_torch.dist.matmul import (
     matmul_train_comm_elems,
     matmul_train_mem_elems,
 )
+from repro_torch.dist.pipeline import pipelined_apply
 
 # dist.train sits above the model/optimizer stack (it imports models.cnn,
 # which imports the dist ops); re-export it lazily so importing the
@@ -84,7 +91,8 @@ from repro_torch.dist.matmul import (
 # circular import.
 _TRAIN_EXPORTS = ("make_grid_train_step", "init_grid_train_state",
                   "cnn_train_comm_elems", "cnn_train_mem_elems",
-                  "grid_divides_cnn")
+                  "grid_divides_cnn", "ResilienceConfig",
+                  "make_resilient_train_loop", "make_synthetic_cnn_batches")
 
 
 def __getattr__(name):
@@ -107,9 +115,12 @@ __all__ = [
     "matmul_train_mem_elems", "matmul_ring2_supported",
     "matmul_mesh_from_conv",
     "halo_exchange_1d", "halo_accumulate_1d",
+    "pipelined_apply", "compressed_psum", "compressed_psum_tree",
     "dist_projection", "projection_routed", "expert_ffn_distributed",
     "moe_ffn_grid_divides", "moe_ffn_comm_elems", "lm_decode_matmuls",
     "lm_serve_comm_elems", "lm_serve_mem_elems", "kv_cache_elems",
     "make_grid_train_step", "init_grid_train_state",
     "cnn_train_comm_elems", "cnn_train_mem_elems", "grid_divides_cnn",
+    "ResilienceConfig", "make_resilient_train_loop",
+    "make_synthetic_cnn_batches",
 ]

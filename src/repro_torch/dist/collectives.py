@@ -70,12 +70,14 @@ SCHEDULES = ("allgather", "ring", "ring2")
 
 class CollectiveNote(NamedTuple):
     """One collective: its kind, the mesh axes it runs over, the call-site
-    tag (which primitive emitted it) and its per-rank wire elements."""
+    tag (which primitive emitted it), its per-rank wire elements and the
+    bytes of one element (``wire_elems * itemsize`` is its wire bytes)."""
 
     kind: str             # all-reduce | all-gather | collective-permute
     axes: Tuple[str, ...]
     tag: str
     wire_elems: float
+    itemsize: int = 4
 
 
 _RECORD_STACK: list = []
@@ -108,12 +110,13 @@ def note_scope(name: str):
         _SCOPES.pop()
 
 
-def _note(kind: str, axes, tag: str, wire_elems: float) -> None:
+def _note(kind: str, axes, tag: str, wire_elems: float,
+          itemsize: int = 4) -> None:
     if _RECORD_STACK:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         tag = ":".join([s for s in _SCOPES if s] + [tag])
         _RECORD_STACK[-1].append(
-            CollectiveNote(kind, axes, tag, float(wire_elems)))
+            CollectiveNote(kind, axes, tag, float(wire_elems), itemsize))
 
 
 # --------------------------------------------------------------------------
@@ -206,15 +209,17 @@ def _gather(t: torch.Tensor, mesh: DeviceMesh, spec, tag: str):
 
 class _Shard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh, spec, grad_psum_axes):
+    def forward(ctx, t, mesh, spec, grad_psum_axes, bwd_tag):
         ctx.mesh, ctx.spec, ctx.axes = mesh, spec, grad_psum_axes
+        ctx.bwd_tag = bwd_tag
         return _slice(t, mesh, spec)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.axes:
-            g = psum(g, ctx.mesh, ctx.axes, tag="reshard")
-        return _gather(g, ctx.mesh, ctx.spec, "reshard"), None, None, None
+            g = psum(g, ctx.mesh, ctx.axes, tag=ctx.bwd_tag)
+        return (_gather(g, ctx.mesh, ctx.spec, ctx.bwd_tag),
+                None, None, None, None)
 
 
 class _Unshard(torch.autograd.Function):
@@ -229,18 +234,19 @@ class _Unshard(torch.autograd.Function):
 
 
 def shard(t: torch.Tensor, mesh: DeviceMesh, spec, *,
-          grad_psum_axes=()) -> torch.Tensor:
+          grad_psum_axes=(), bwd_tag: str = "reshard") -> torch.Tensor:
     """This rank's block of ``t`` under ``spec``, what ``shard_map``'s
     ``in_specs`` hand each device: one entry per dim -- ``None``
     (replicated), an axis name, or a tuple of axis names, major first
     (``("c", "k")`` makes block ``c * Pk + k``).
 
     Differentiable for a replicated ``t``: the gradient shards are
-    gathered (tag ``"reshard"``) so every rank holds the complete
-    gradient, after a psum over ``grad_psum_axes`` when each rank of those
-    axes holds only a partial sum of its shard's gradient."""
+    gathered (tag ``bwd_tag``, ``"reshard"`` by default) so every rank
+    holds the complete gradient, after a psum over ``grad_psum_axes`` when
+    each rank of those axes holds only a partial sum of its shard's
+    gradient."""
     if torch.is_grad_enabled() and t.requires_grad:
-        return _Shard.apply(t, mesh, spec, tuple(grad_psum_axes))
+        return _Shard.apply(t, mesh, spec, tuple(grad_psum_axes), bwd_tag)
     return _slice(t, mesh, spec)
 
 
@@ -285,7 +291,7 @@ def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis: str, perm, *,
 
 
 def _ppermute(x, mesh, axis, perm, tag):
-    _note("collective-permute", axis, tag, x.numel())
+    _note("collective-permute", axis, tag, x.numel(), x.element_size())
     me = axis_index(mesh, axis)
     group = mesh.get_group(axis)
     x = x.contiguous()
@@ -326,7 +332,8 @@ def _live_axes(mesh: DeviceMesh, axes) -> tuple:
 
 def _psum(x, mesh, axes, tag):
     g = math.prod(axis_size(mesh, a) for a in axes)
-    _note("all-reduce", axes, tag, 2.0 * x.numel() * (g - 1) / g)
+    _note("all-reduce", axes, tag, 2.0 * x.numel() * (g - 1) / g,
+          x.element_size())
     out = x.detach().clone(memory_format=torch.contiguous_format)
     live = _live_axes(mesh, axes)
     if live:
@@ -420,6 +427,32 @@ def pmean(x: torch.Tensor, mesh: DeviceMesh, axes, *,
         axis_size(mesh, a) for a in axes)
 
 
+def world_size() -> int:
+    """Ranks in the default process group; 1 when there is none."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def world_rank() -> int:
+    """This rank in the default process group; 0 when there is none."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def any_rank(flag: bool, *, device=None, tag: str = "stop_vote") -> bool:
+    """True on every rank when ``flag`` is true on any rank: a one-int max
+    all-reduce over the default process group (on ``device``, which must
+    be a card under nccl), recorded under ``tag``.  It is control, not
+    part of any op, so no analytic count includes it.  A world of one
+    (or no process group) returns ``flag`` without a collective."""
+    g = world_size()
+    if g == 1:
+        return bool(flag)
+    _note("all-reduce", ("world",), tag, 2.0 * (g - 1) / g)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                     device=torch.device("cpu" if device is None else device))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
                  tag: str = "") -> torch.Tensor:
     """Reduce-scatter over one axis: chunk ``r`` (in axis order along
@@ -431,7 +464,8 @@ def psum_scatter(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
     if x.shape[dim] % g:
         raise ValueError(f"reduce-scatter dim {dim} of extent "
                          f"{x.shape[dim]} not divisible by axis size {g}")
-    _note("reduce-scatter", axis, tag, x.numel() * (g - 1) / g)
+    _note("reduce-scatter", axis, tag, x.numel() * (g - 1) / g,
+          x.element_size())
     group = mesh.get_group(axis)
     chunk = x.shape[dim] // g
     if dist.get_backend(group) == "nccl":
@@ -472,7 +506,7 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str, *, dim: int,
 
 def _all_gather(x, mesh, axis, dim, tag):
     g = axis_size(mesh, axis)
-    _note("all-gather", axis, tag, x.numel() * (g - 1))
+    _note("all-gather", axis, tag, x.numel() * (g - 1), x.element_size())
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(g)]
     dist.all_gather(parts, x, group=mesh.get_group(axis))

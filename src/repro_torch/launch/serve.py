@@ -27,9 +27,12 @@ same engine on the same requests and emits the same tokens.
 
 The CLI serves at the config's own dtype (bfloat16 for the LM configs;
 the GEMM takes it on the card) and in float32 under ``--smoke``, as the
-reference's does (:func:`serve_config`).  Not here yet: the decode
-watchdog, ``state_dump_path``, ``fault_log`` and ``injector`` belong to
-the fault runtime (raise ``NotImplementedError``); the static ``Engine``
+reference's does (:func:`serve_config`).  Degradation knobs, as the
+reference's: a bounded queue (``max_queue``), per-request deadlines, and
+a decode watchdog (``decode_watchdog_timeout_s``) that snapshots the
+engine's bookkeeping to ``state_dump_path`` when a decode step wedges,
+reporting to ``fault_log``; an ``injector`` fires at the ``"decode"``
+point of every iteration (``fault/inject.py``).  The static ``Engine``
 for the non-transformer families waits for the zoo slice.
 
 CLI::
@@ -47,7 +50,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -59,8 +64,6 @@ import torch
 from repro_torch.configs import get_config
 
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
-FAULT_LATER = ("{knob} belongs to the fault runtime, which waits for the "
-               "fault-runtime slice of the port (repro/fault)")
 SMOKE_GRID = (2, 2, 2)
 
 
@@ -113,13 +116,6 @@ class ContinuousEngine:
                 f"continuous batching covers {_TRANSFORMER_FAMILIES}; "
                 f"family {cfg.family!r} serves via the static Engine, which "
                 f"waits for the zoo slice of the port")
-        for knob, value in (("decode_watchdog_timeout_s",
-                             decode_watchdog_timeout_s),
-                            ("state_dump_path", state_dump_path),
-                            ("fault_log", fault_log),
-                            ("injector", injector)):
-            if value is not None:
-                raise NotImplementedError(FAULT_LATER.format(knob=knob))
         self._lm = lm_mod
         self.cfg, self.params = cfg, params
         self.device = params["emb"]["tok"].device
@@ -127,7 +123,14 @@ class ContinuousEngine:
         self.bucket = prefill_bucket
         self.eos_id = eos_id
         self.dist_mesh, self.dist_schedule = dist_mesh, dist_schedule
+        # degradation knobs: a bounded queue applies backpressure
+        # (reject with a status, never unbounded growth); the decode
+        # watchdog snapshots the engine's bookkeeping when a decode wedges
         self.max_queue = max_queue
+        self.decode_watchdog_timeout_s = decode_watchdog_timeout_s
+        self.state_dump_path = state_dump_path
+        self.fault_log = fault_log
+        self.injector = injector
         self.queue: deque = deque()
         self.active: List[Optional[Request]] = [None] * slots
         self.retired: List[Request] = []
@@ -288,9 +291,12 @@ class ContinuousEngine:
                                         per_slot=True, device=self.device)
         self._decode_fn(throwaway, self.next_tok)
 
+    # ----------------------------------------------------- wedge handling --
+
     def engine_state(self) -> Dict:
-        """Bookkeeping snapshot: which requests are queued, in flight and
-        retired."""
+        """Bookkeeping snapshot -- what the decode watchdog saves when a
+        decode wedges, so a restarted engine (or an operator) knows which
+        requests were queued, in flight and retired."""
         return {
             "queued": [r.rid for r in self.queue],
             "active": [{"rid": r.rid, "n_out": len(r.out)}
@@ -300,16 +306,49 @@ class ContinuousEngine:
             "decode_steps": len(self.decode_ms),
         }
 
+    def _on_decode_wedge(self, iteration: int, elapsed: float) -> None:
+        """The watchdog's handler (on its thread): write the bookkeeping
+        snapshot to ``state_dump_path``, whole or not at all
+        (``os.replace``)."""
+        if not self.state_dump_path:
+            return
+        snap = dict(self.engine_state(), event="decode_wedge",
+                    iteration=iteration, elapsed_s=elapsed)
+        tmp = self.state_dump_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(snap, f, indent=1)
+        os.replace(tmp, self.state_dump_path)
+
     # ------------------------------------------------------------- serve --
 
     def serve(self, requests: List[Request]) -> Dict:
         for r in requests:
             self.submit(r)
+        wd = None
+        if self.decode_watchdog_timeout_s:
+            from repro_torch.fault.watchdog import StepWatchdog
+            wd = StepWatchdog(self.decode_watchdog_timeout_s,
+                              on_wedge=self._on_decode_wedge,
+                              log=self.fault_log)
         t0 = time.perf_counter()
-        while self.queue or any(r is not None for r in self.active):
-            self._admit()
-            if any(r is not None for r in self.active):
-                self._decode_once()
+        iteration = 0
+        try:
+            while self.queue or any(r is not None for r in self.active):
+                self._admit()
+                if any(r is not None for r in self.active):
+                    if wd is not None:
+                        wd.arm(iteration)
+                    try:
+                        if self.injector is not None:
+                            self.injector.fire("decode", iteration)
+                        self._decode_once()
+                    finally:
+                        if wd is not None:
+                            wd.disarm()
+                iteration += 1
+        finally:
+            if wd is not None:
+                wd.close()
         return self._stats(time.perf_counter() - t0)
 
     def _stats(self, wall_s: float) -> Dict:

@@ -460,3 +460,63 @@ def test_kernels_refuse_mixed_dtypes_and_misaligned_bf16(cuda_device):
                              device=cuda_device))
     with pytest.raises(ValueError, match="16-byte aligned"):
         wino_gemm(flat[1:].view(1, 8, 16), xb.t().contiguous()[None])
+
+
+# ------------------------------------------------ checkpoints, compression --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_roundtrip_of_a_card_train_state(cuda_device, tmp_path,
+                                                    dtype):
+    """A train state on the card (parameters in ``dtype``, f32 moments and
+    residuals) saved asynchronously and restored onto the card, bit-equal
+    (bfloat16 travels as its bits)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.ckpt.checkpointer import CheckpointManager
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import init_train_state
+
+    params = pytree.tree_map(lambda t: t.to(dtype), init_cnn(
+        torch.Generator().manual_seed(0), channels=[64, 64], n_classes=10,
+        in_channels=3, device=cuda_device))
+    state = init_train_state(params, AdamW(), compress=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    state = state._replace(opt=state.opt._replace(step=7, m=pytree.tree_map(
+        lambda t: torch.randn(t.shape, generator=gen, device=cuda_device),
+        state.opt.m)))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, 7, async_=True)
+    mgr.wait()
+    like = init_train_state(pytree.tree_map(torch.zeros_like, params),
+                            AdamW(), compress=True)
+    restored, step = mgr.restore_latest(like)
+    assert step == 7 and restored.opt.step == 7
+    for a, b in zip(pytree.tree_leaves(restored), pytree.tree_leaves(state)):
+        if isinstance(b, torch.Tensor):
+            assert a.device == b.device and a.dtype == b.dtype
+            assert torch.equal(a, b)
+
+
+def _compress_one_rank(rank, g):
+    from repro_torch.dist.collectives import make_mesh, record_collectives
+    from repro_torch.dist.compress import compressed_psum
+
+    mesh = make_mesh((1,), ("pod",))
+    with record_collectives() as notes:
+        red, err = compressed_psum(g.cuda(), mesh, "pod")
+    return red.cpu(), err.cpu(), [(n.kind, n.tag, n.itemsize) for n in notes]
+
+
+def test_compressed_psum_on_a_one_rank_nccl_mesh(cuda_device):
+    """The int8 all-gather runs on nccl; on one rank the mean is this
+    rank's quantized round trip, the same as the CPU's."""
+    from repro_torch.dist.compress import _quantize_int8
+    from repro_torch.dist.spawn import run_spmd
+
+    g = torch.from_numpy(_normal(11, 64, 100))
+    red, err, notes = run_spmd(_compress_one_rank, 1, g)[0]
+    want = _quantize_int8(g)
+    assert torch.equal(red, want) and torch.equal(err, g - want)
+    assert notes == [("all-gather", "compress_s8", 1),
+                     ("all-gather", "compress_s8", 4)]
