@@ -32,7 +32,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    Winograd's tile GEMM at the 64 -> 64 layer (the conv's wrapper widens
    bf16 operands to f32 and narrows the result once, the widening's own
    time printed as ``widen_ms``; the tile GEMM loads bf16 natively),
-   held to ``BF16_KERNEL_RTOL``;
+   held to ``BF16_KERNEL_RTOL``.  Every row (and every row of phase 8)
+   prints the paper's Eq. 4 block plan at the card's budget
+   (``kernels.tiling.plan_blocks``, ``SMEM_PER_BLOCK`` of f32, 64-wide
+   tiles) beside the launch the kernel took (``kernels._plan``'s tile
+   and splits): printed, not used;
 4. inference at full width: the repro CNN at ResNet-50's 3x3 stage
    widths (channels 64..512, 3 input channels, 1000 classes, batch 64,
    56x56) answers batches of images through ``forward_cnn(dist_mesh=...)``
@@ -125,7 +129,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    width in f32 on the same grid (4 requests, 8 new tokens), its
    launches gated and its logits teacher-forced against its dense path
    (the experts as einsums) the same way, and the host's share of a
-   decode step printed.
+   decode step printed;
+9. perf, the calibrated cost model on the card's own measurements: the
+   bench records of ``perf/bench.py`` -- ``kernel/<layer>`` for the
+   reference's ``FULL_LAYERS`` at batch 64 through
+   ``kernels.ops.local_conv2d`` (the static dispatch, then the tuner in
+   a temporary plan table), ``train/cnn/2D-DP`` from phase 5's static
+   steps (the whole CNN step on the one-rank grid) and ``serve/`` from
+   phase 8's llama3.2-1b decode steps in bf16 and f32 -- fitted by
+   ``perf.fit_collectives`` into a table written to
+   the git-ignored ``perf_out/`` (with the records and the error
+   report), gated: every constant finite and >= 0, the provenance naming
+   the card, the compute rate other than the checked-in CPU table's.
+   Granite-moe's decode step (f32) is held out of the fit: its
+   projection count differs from llama's, so it tests the split of
+   ``dispatch/decode`` and ``dispatch/matmul`` that the llama records
+   alone leave to the ridge.  Printed, not gated: predicted vs measured
+   for every fitted record and their median (``prediction_error_report``,
+   in sample), the held-out record's error apart, the dispatch keys and
+   the median of a second fit that takes granite-moe in,
+   ``predict_cnn_train_ms`` of phase 5's CNN beside its measured static
+   steps and device-busy ms and phase 5b's run C (the same step, timed
+   apart), ``synthesize_cnn_grid`` by time under the
+   card's table over 1, 2, 4 and 8 devices beside its picks by wire,
+   ``synthesize_dist_grid(schedule="auto", minimize="time")`` per
+   ResNet-50 layer at 4 devices, each key's ``n_obs`` (the collectives
+   one card cannot fit read the nominal default entry, marked so), and
+   the rows where the Eq. 4 plan differs from the launch's tile.  Then
+   ``python -m repro_torch.launch.train --mesh dist-grid --minimize
+   time`` for 2 steps with ``REPRO_CALIB`` at the card's table: it must
+   print the table's provenance and the grid the synthesizer picks.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -306,6 +339,37 @@ def bound(flops: float, nbytes: float, peak: float = F32_PEAK_FLOPS):
         ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def eq4_beside_launch(prob, route: str, t: int, m: int, n: int, r: int,
+                      dtype=torch.float32) -> dict:
+    """The paper's Eq. 4 block plan of ``prob`` at the card's budget
+    (``kernels.tiling.plan_blocks`` with ``SMEM_PER_BLOCK`` of float32 and
+    64-wide tiles) beside the launch the kernel takes for the
+    ``[t, m, r] @ [t, r, n]`` GEMM on ``route`` (``tile``: ``gemm_plan``;
+    ``skinny``: ``skinny_plan``; ``wino``: ``wino_plan``).  Printed, not
+    used: the launches come from ``kernels._plan``."""
+    from repro_torch.kernels import _plan, tiling
+
+    plan = tiling.plan_blocks(prob, vmem_elems=_plan.SMEM_PER_BLOCK // 4,
+                              mxu=64)
+    sms = _plan.sm_count(torch.cuda.current_device())
+    if route == "wino":
+        launch = _plan.wino_plan(t, m, n, r, dtype, sms)
+        tile = launch.tile
+    elif route == "skinny":
+        launch = _plan.skinny_plan(m, n, r, dtype, sms)
+        tile = (launch.rows, launch.strip)
+    else:
+        launch = _plan.gemm_plan(t, m, n, r, sms)
+        tile = launch.tile
+    return {"eq4_plan": {"block_bhw": plan.block_bhw,
+                         "block_k": plan.block_k, "block_c": plan.block_c,
+                         "footprint_elems": plan.vmem_elems,
+                         "traffic_elems": plan.hbm_traffic},
+            "launch_plan": {"route": route, "tile": list(tile),
+                            "splits": launch.splits, "chunk": launch.chunk},
+            "eq4_differs": [plan.block_bhw, plan.block_k] != list(tile)}
+
+
 def conv_layers():
     """(C, K, H) of every conv of the CNN, in order."""
     out, cin, h = [], IN_CHANNELS, HW
@@ -369,15 +433,20 @@ def conv_row(name, x, w, direction):
     """Kernel vs plain vs ``F.conv2d`` for one stride-1 VALID conv."""
     from repro_torch.kernels.conv2d import conv2d, conv2d_plain
 
+    from repro_torch.core.problem import ConvProblem
+
     n, c, h, wd = x.shape
     k, _, kh, kw = w.shape
     ho, wo = h - kh + 1, wd - kw + 1
+    plans = eq4_beside_launch(
+        ConvProblem(Nb=n, Nk=k, Nc=c, Nh=ho, Nw=wo, Nr=kh, Ns=kw), "tile",
+        1, n * ho * wo, k, c * kh * kw)
     return compare_kernel(
         name, lambda a, b: conv2d(a, b, padding="VALID"),
         lambda a, b: conv2d_plain(a, b, padding="VALID"), F.conv2d, (x, w),
         2.0 * n * k * c * ho * wo * kh * kw,
         x.element_size() * (x.numel() + w.numel() + n * k * ho * wo),
-        direction, extra=_widen_ms(x, w, (n, k, ho, wo)))
+        direction, extra=dict(_widen_ms(x, w, (n, k, ho, wo)), **plans))
 
 
 def _widen_ms(a, b, out_shape):
@@ -391,16 +460,21 @@ def _widen_ms(a, b, out_shape):
                                          out.to(torch.bfloat16)))}
 
 
-def gemm_row(name, kernel, plain, library, a, b, extra=None):
+def gemm_row(name, kernel, plain, library, a, b, extra=None, route="tile"):
     """Kernel vs plain vs library for one (batched) GEMM, at the
-    operands' dtype."""
+    operands' dtype; ``route`` names the launch plan the kernel takes
+    (see :func:`eq4_beside_launch`)."""
+    from repro_torch.core.problem import ConvProblem
+
     t = a.shape[0] if a.dim() == 3 else 1
     m, kk = a.shape[-2:]
     n = b.shape[-1]
+    plans = eq4_beside_launch(ConvProblem.from_matmul(t * m, n, kk), route,
+                              t, m, n, kk, a.dtype)
     return compare_kernel(name, kernel, plain, library, (a, b),
                           2.0 * t * m * kk * n,
                           a.element_size() * t * (m * kk + kk * n + m * n),
-                          extra=extra)
+                          extra=dict(extra or {}, **plans))
 
 
 def wino_row(name, v, u):
@@ -412,15 +486,20 @@ def wino_row(name, v, u):
     from repro_torch.kernels.winograd import (wino_gemm, wino_gemm_einsum,
                                               wino_gemm_plain)
 
+    from repro_torch.core.problem import ConvProblem
+
     if v.dtype != torch.float32:
         return gemm_row(name, wino_gemm, wino_gemm_plain, wino_gemm_einsum,
-                        v, u)
+                        v, u, route="wino")
     t, m, r = v.shape
     flops = 2.0 * t * m * r * u.shape[2]
     nbytes = 4.0 * t * (m * r + r * u.shape[2] + m * u.shape[2])
+    plans = eq4_beside_launch(ConvProblem.from_matmul(t * m, u.shape[2], r),
+                              "wino", t, m, u.shape[2], r)
     return compare_kernel(name, wino_gemm, wino_gemm_plain,
                           wino_gemm_einsum, (v, u), 3 * flops, nbytes,
-                          extra={"ffma_bound_ms": bound(flops, nbytes)[0]},
+                          extra={"ffma_bound_ms": bound(flops, nbytes)[0],
+                                 **plans},
                           peak=TF32_PEAK_FLOPS)
 
 
@@ -547,7 +626,9 @@ def resnet50_phase(device):
                 lambda a, b: conv2d_plain(a, b, padding="SAME"),
                 lambda a, b, r=r: F.conv2d(a, b, padding=r // 2), (x, wt),
                 float(p.flops()),
-                4.0 * (x.numel() + wt.numel() + n * k * h * w)))
+                4.0 * (x.numel() + wt.numel() + n * k * h * w),
+                extra=eq4_beside_launch(p, "tile", 1, n * h * w, k,
+                                        c * r * r)))
             del x, wt
         if r == 3 and p.sh == 1:
             tiles = n * (-(-h // 2)) * (-(-w // 2))
@@ -567,6 +648,27 @@ def resnet50_phase(device):
     return rows
 
 
+@contextlib.contextmanager
+def _temp_plan_table():
+    """The tuner's plan table in a temporary directory for the scope;
+    yields its path."""
+    from repro_torch.kernels import autotune
+
+    old = os.environ.get(autotune.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plans.json")
+        os.environ[autotune.CACHE_ENV] = path
+        autotune.plan_cache().reset()
+        try:
+            yield path
+        finally:
+            autotune.plan_cache().reset()
+            if old is None:
+                os.environ.pop(autotune.CACHE_ENV)
+            else:
+                os.environ[autotune.CACHE_ENV] = old
+
+
 def warm_phase():
     """``autotune.warm(batch=64, refresh=True)`` against a plan table in a
     temporary directory: every layer's winner and every candidate's ms,
@@ -575,25 +677,14 @@ def warm_phase():
     from repro_torch.core.problem import resnet50_layers
     from repro_torch.kernels import autotune, ops
 
-    old = os.environ.get(autotune.CACHE_ENV)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "warm_plan.json")
-        os.environ[autotune.CACHE_ENV] = path
-        autotune.plan_cache().reset()
+    with _temp_plan_table() as path:
         _zero_counts()
-        try:
-            t0 = time.perf_counter()
-            table = autotune.warm(batch=BATCH, refresh=True)
-            seconds = time.perf_counter() - t0
-            launches = _launch_counts()
-            with open(path, encoding="utf-8") as f:
-                persisted = json.load(f)["plans"]
-        finally:
-            autotune.plan_cache().reset()
-            if old is None:
-                os.environ.pop(autotune.CACHE_ENV)
-            else:
-                os.environ[autotune.CACHE_ENV] = old
+        t0 = time.perf_counter()
+        table = autotune.warm(batch=BATCH, refresh=True)
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        with open(path, encoding="utf-8") as f:
+            persisted = json.load(f)["plans"]
     for name, p in resnet50_layers(batch=BATCH).items():
         ent = table[name]
         x_shape = (p.Nb, p.Nc, p.sh * p.Nh, p.sw * p.Nw)
@@ -624,9 +715,12 @@ def _synth(fn, *args, **kw):
         c = fn(*args, **kw)
     except ValueError as err:
         return {"error": str(err)}
-    return {"grid": list(c.grid), "algo": c.algo,
-            "model_cost": c.model_cost,
-            "wire_elems": c.comm_elems["total"], "mem_elems": c.mem_elems}
+    out = {"grid": list(c.grid), "algo": c.algo,
+           "model_cost": c.model_cost,
+           "wire_elems": c.comm_elems["total"], "mem_elems": c.mem_elems}
+    if c.predicted_ms is not None:   # ranked by time
+        out.update(predicted_ms=c.predicted_ms, schedule=c.schedule)
+    return out
 
 
 def synthesis_phase():
@@ -1180,8 +1274,11 @@ def train_phase(card):
         check(upd["loss"] <= LOSS_RTOL and upd["params_lr"] <= PARAM_LR_TOL
               and upd["moments"] <= MOMENT_RTOL,
               f"train mode {mode}: the steps vs a plain AdamW: {upd}")
+    static = res["static"]
     return ({mode: res[mode]["launches"] for mode in MODES + (SG_MODE,)},
-            statistics.median(res["static"]["step_ms"]))
+            {"step_ms": static["step_ms"],
+             "p50": statistics.median(static["step_ms"]),
+             "device_busy_ms": static["profile"]["device_busy_ms"]})
 
 
 # --------------------------------------------------------------------------
@@ -1260,11 +1357,12 @@ def _ckpt_times(state, root):
             "restore_ms": restore_ms}
 
 
-def _cli(args, ckpt_dir, plan=None):
+def _cli(args, ckpt_dir, plan=None, steps=RESILIENT_STEPS, env=None):
     """``python -m repro_torch.launch.train --mesh dist-grid`` on this
-    card at the phase's widths (static plan); its output and wall s."""
+    card at the phase's widths (static plan), ``env`` added to the
+    environment; its output, losses, fault events and wall s."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--mesh",
-           "dist-grid", "--ranks", "1", "--steps", str(RESILIENT_STEPS),
+           "dist-grid", "--ranks", "1", "--steps", str(steps),
            "--batch", str(BATCH), "--channels", ",".join(map(str, CHANNELS)),
            "--in-channels", str(IN_CHANNELS), "--hw", str(HW), "--classes",
            str(N_CLASSES), "--lr", str(TRAIN_LR), "--ckpt-dir", ckpt_dir,
@@ -1273,7 +1371,7 @@ def _cli(args, ckpt_dir, plan=None):
         cmd += ["--fault-plan", plan.to_json()]
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"),
-               REPRO_TORCH_AUTOTUNE="0")
+               REPRO_TORCH_AUTOTUNE="0", **(env or {}))
     env.pop("REPRO_FAULT_PLAN", None)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
@@ -1434,7 +1532,7 @@ def resilient_phase(card, static_launches, static_p50):
           f"s8 compression, card vs CPU: {compress_err:.3e}")
     check(card_c["pipe_err"] <= PIPE_RTOL,
           f"one-stage pipeline vs the stage: {card_c['pipe_err']:.3e}")
-    return launches
+    return launches, step_ms
 
 
 # --------------------------------------------------------------------------
@@ -1521,7 +1619,7 @@ def serve_kernel_phase(device):
                     row = gemm_row(
                         f"serve {arch} {what} {dt} x{count} "
                         f"[{m},{c}]@[{c},{n}]", matmul, matmul_plain,
-                        torch.matmul, x, w,
+                        torch.matmul, x, w, route=route,
                         extra={"route": route, "arch": arch, "step": what,
                                "count": count,
                                "kernel_cold_device_ms": cold_device_ms(
@@ -1826,7 +1924,7 @@ def _serve_summary(card, arch, r, extra):
 def serve_phase(card):
     """Phase 8: LM serving through ``launch.serve.run`` (see the module
     docstring).  Returns the GEMM's and the skinny GEMM's launches per
-    serve path."""
+    serve path, and each run's ``(arch, dtype, decode-step stats)``."""
     from repro_torch.dist.spawn import run_spmd
 
     t0 = time.perf_counter()
@@ -1858,8 +1956,183 @@ def serve_phase(card):
         check(equal, f"smoke config in {dt}: the card's tokens differ from "
               f"the CPU's")
     paths = {"serve_bf16": bf, "serve": ll, "serve_moe": moe}
-    return {name: {path: r["launches"][name] for path, r in paths.items()}
-            for name in ("matmul", "skinny_gemm")}
+    return ({name: {path: r["launches"][name] for path, r in paths.items()}
+             for name in ("matmul", "skinny_gemm")},
+            [(arch, r["dtype"], r["stats"])
+             for arch, r in ((SERVE_ARCH, bf), (SERVE_ARCH, ll),
+                             (MOE_ARCH, moe))])
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the card's calibration table and the time-ranked planner
+# --------------------------------------------------------------------------
+
+def _entry_json(table, key):
+    """A key's constants in ``table``, or the nominal default entry
+    ``lookup`` falls back to (``n_obs`` 0, marked ``default``)."""
+    ent = table.lookup(key)
+    out = {"alpha_ms": ent.alpha_ms, "beta_ms_per_elem": ent.beta_ms_per_elem,
+           "n_obs": ent.n_obs}
+    if key not in table.collectives and key.split("/")[0] \
+            not in table.collectives:
+        out["default"] = True
+    return out
+
+
+def perf_phase(card, rows, static, resilient_ms, serve_stats):
+    """Phase 9 (see the module docstring).  Returns the kernels'
+    launches of its kernel records."""
+    from repro_torch.core.sharding_synthesis import (synthesize_cnn_grid,
+                                                     synthesize_dist_grid)
+    from repro_torch.core.problem import resnet50_layers
+    from repro_torch.perf import (EVENT_KEYS, fit_collectives,
+                                  predict_cnn_train_ms,
+                                  prediction_error_report)
+    from repro_torch.perf import bench
+    from repro_torch.perf.calibrate import OUT_DIR, CalibTable, repo_root
+
+    t_phase = time.perf_counter()
+    x_shape = (BATCH, IN_CHANNELS, HW, HW)
+    # the card's records: kernel/<layer> timed now (static dispatch, then
+    # the tuner in a temporary plan table), comm/train from phase 5's
+    # static steps, serve/ from phase 8's llama3.2-1b decode steps
+    with _temp_plan_table():
+        _zero_counts()
+        kern = bench.kernel_records(batch=BATCH, device="cuda")
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+    check(launches["conv2d"] > 0,
+          f"phase 9's kernel records launched no direct conv: {launches}")
+    train = [bench.cnn_train_record(
+        static["step_ms"], x_shape=x_shape, channels=CHANNELS,
+        n_classes=N_CLASSES, k=3, pool_every=POOL_EVERY,
+        grid=(1, 1, 1, 1, 1))]
+    serve = [bench.serve_record(st, arch=arch, dtype=dt, slots=SERVE_SLOTS,
+                                smoke=False, grid=(1, 1, 1))
+             for arch, dt, st in serve_stats]
+    # granite-moe's decode step is held out of the card's table: it is
+    # priced by a table fitted without it, and a second fit with it
+    # shows what it does to the dispatch split
+    held = [r for r in serve if r["arch"] == MOE_ARCH]
+    serve = [r for r in serve if r["arch"] != MOE_ARCH]
+    source = {"source": "chip_smoke.py phase 9"}
+    table = fit_collectives(train + serve, kernel_records=kern,
+                            provenance=source)
+    with_held = fit_collectives(train + serve + held, kernel_records=kern,
+                                provenance=source)
+    out = Path(repo_root()) / OUT_DIR
+    out.mkdir(exist_ok=True)
+    calib_path = out / "CALIB.json"
+    table.save(str(calib_path))
+    report = prediction_error_report(train + serve + kern, table)
+    for fname, recs in (("BENCH_kernels.json", kern),
+                        ("BENCH_comm.json", train),
+                        ("BENCH_serve.json", serve + held),
+                        ("CALIB_report.json", report)):
+        (out / fname).write_text(json.dumps(recs, indent=1,
+                                            sort_keys=True) + "\n")
+
+    consts = [table.compute_flops_per_ms] + [
+        v for e in table.collectives.values()
+        for v in (e.alpha_ms, e.beta_ms_per_elem)]
+    check(all(math.isfinite(v) and v >= 0 for v in consts),
+          f"the card's table has a negative or non-finite constant: "
+          f"{table.to_json()}")
+    prov = table.provenance
+    check(prov.get("platform") == "cuda"
+          and prov.get("device") == torch.cuda.get_device_name(0)
+          and prov.get("card") == card,
+          f"the table's provenance does not name the card: {prov}")
+    cpu = CalibTable.load(str(Path(repo_root()) / "CALIB.json"))
+    check(table.compute_flops_per_ms != cpu.compute_flops_per_ms,
+          "the card's compute rate equals the checked-in CPU table's")
+    print(json.dumps({"phase": "perf", "table": table.to_json(),
+                      "keys": {k: _entry_json(table, k)
+                               for k in EVENT_KEYS},
+                      "cpu_table_flops_per_ms": cpu.compute_flops_per_ms}),
+          flush=True)
+    print(json.dumps({"phase": "perf", "kernel_records": [
+        [r["name"], r["schedule"], r["impl"], r["wall_ms"], r["std_ms"]]
+        for r in kern]}), flush=True)
+    for row in report["records"]:
+        print(json.dumps({"phase": "perf", "record": row}), flush=True)
+    print(json.dumps({"phase": "perf", "in_sample": True,
+                      "error_summary": report["summary"]}), flush=True)
+    dispatch = ("dispatch/conv", "dispatch/matmul", "dispatch/decode")
+    print(json.dumps({"phase": "perf", "held_out": prediction_error_report(
+        held, table)}), flush=True)
+    print(json.dumps({"phase": "perf", "fitted_with_held_out": {
+        "keys": {k: _entry_json(with_held, k) for k in dispatch},
+        "error_summary": prediction_error_report(
+            train + serve + held + kern, with_held)["summary"]}}),
+        flush=True)
+
+    # phase 5's CNN under the card's table: the record was fitted
+    # (in sample); run C of phase 5b timed the same step apart
+    pred = predict_cnn_train_ms(x_shape, CHANNELS, N_CLASSES,
+                                (1, 1, 1, 1, 1), pool_every=POOL_EVERY,
+                                calib=table)
+    print(json.dumps({"phase": "perf", "cnn_step": {
+        "grid": [1, 1, 1, 1, 1], "predicted_ms": pred,
+        "static_p50_ms": static["p50"],
+        "static_mean_ms": statistics.fmean(static["step_ms"]),
+        "static_device_busy_ms": static["device_busy_ms"],
+        "resilient_p50_ms": statistics.median(resilient_ms)}}),
+        flush=True)
+
+    # the planner ranking by time under the card's table, beside its
+    # picks by wire (phase 7)
+    picks = {}
+    for n in (1, 2, 4, 8):
+        for sched in ("allgather", "ring2"):
+            picks[(n, sched)] = {
+                mode: _synth(synthesize_cnn_grid, x_shape, CHANNELS,
+                             N_CLASSES, n, schedule=sched, minimize=mode,
+                             **({"calib": table} if mode == "time" else {}))
+                for mode in ("comm", "time")}
+            print(json.dumps({"phase": "perf", "model": "smoke CNN",
+                              "devices": n, "schedule": sched,
+                              **picks[(n, sched)]}), flush=True)
+    for name, p in resnet50_layers(batch=BATCH).items():
+        args = ((p.Nb, p.Nc, p.sh * p.Nh, p.sw * p.Nw),
+                (p.Nk, p.Nc, p.Nr, p.Ns), 4)
+        print(json.dumps({
+            "phase": "perf", "layer": name, "devices": 4,
+            "comm": _synth(synthesize_dist_grid, *args,
+                           stride=(p.sh, p.sw)),
+            "time_auto": _synth(synthesize_dist_grid, *args,
+                                stride=(p.sh, p.sw), schedule="auto",
+                                minimize="time", calib=table)}),
+            flush=True)
+
+    # the trainer's CLI ranking by time under the card's table
+    stdout, losses, _, cli_s = _cli(["--minimize", "time"], "", steps=2,
+                                    env={"REPRO_CALIB": str(calib_path)})
+    want = tuple(picks[(1, "allgather")]["time"]["grid"])
+    check(f"[calib] table={calib_path} source=chip_smoke.py phase 9 "
+          f"platform=cuda" in stdout and f"card={card}" in stdout
+          and f"[resilient] grid={want}" in stdout and sorted(losses)
+          == [0, 1], f"the trainer's CLI with --minimize time:\n{stdout}")
+
+    # the paper's Eq. 4 plan at the card's budget beside each phase-3
+    # and phase-8 row's launch plan
+    planned = [r for rs in rows.values() for r in rs if "eq4_plan" in r]
+    differ = [[r["shape"], [r["eq4_plan"][k] for k in
+                            ("block_bhw", "block_k", "block_c")],
+               r["launch_plan"]["tile"], r["launch_plan"]["splits"]]
+              for r in planned if r["eq4_differs"]]
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "perf", "eq4_rows": len(planned),
+                      "eq4_differs": len(differ), "rows": differ}),
+          flush=True)
+    print(json.dumps({"phase": "perf", "card": card,
+                      "kernel_record_launches": launches,
+                      "cli_lines": [ln for ln in stdout.splitlines()
+                                    if ln.startswith(("[calib]",
+                                                      "[resilient] grid"))],
+                      "cli_wall_s": cli_s, "table_path": str(calib_path),
+                      "phase_s": phase_s}), flush=True)
+    return launches
 
 
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
@@ -1952,20 +2225,23 @@ def main() -> int:
     for name, extra in resnet50_phase(device).items():
         rows[name] += extra
     infer = slice_phase()
-    train, static_p50 = train_phase(card)
-    resilient = resilient_phase(card, train["static"], static_p50)
+    train, static = train_phase(card)
+    resilient, resilient_ms = resilient_phase(card, train["static"],
+                                              static["p50"])
     warm = warm_phase()
     synthesis_phase()
     serve_rows, serve_step = serve_kernel_phase(device)
     rows["matmul"] += serve_rows["tile"]
-    serve = serve_phase(card)
+    serve, serve_stats = serve_phase(card)
+    perf = perf_phase(card, dict(rows, skinny=serve_rows["skinny"]),
+                      static, resilient_ms, serve_stats)
 
     def by_path(name):
         counts = {"infer": infer.get(name, 0),
                   **{f"train_{m}": train[m][name]
                      for m in MODES + (SG_MODE,)},
                   "train_resilient": resilient[name],
-                  "warm": warm[name]}
+                  "warm": warm[name], "perf": perf[name]}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts
 

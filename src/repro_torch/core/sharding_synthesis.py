@@ -32,8 +32,11 @@ this module does not import ``torch.distributed``.
 It also picks the ``(Pm, Pn, Pc)`` grid of the LM serving engine
 (:func:`synthesize_serve_grid`, reading ``dist.lm``'s accounting).
 
-Ranking by the calibrated time model (``minimize="time"``,
-``schedule="auto"``, ``calib=``) waits for the port of ``repro/perf``.
+Each synthesizer ranks by the analytic objective (``minimize="comm"``)
+or by the calibrated trace-replay prediction (``minimize="time"``,
+``repro_torch.perf``, under ``calib=`` or the table ``load_calib``
+resolves); ``synthesize_dist_grid``'s ``schedule="auto"`` (time mode
+only) searches the schedules beside the grids.
 """
 
 from __future__ import annotations
@@ -146,24 +149,18 @@ class DistGridChoice:
     comm_elems: Dict                       # runtime wire accounting
     mem_elems: float = 0.0                 # runtime peak-live accounting
     predicted_ms: Optional[float] = None   # replay prediction (time mode)
-    schedule: Optional[str] = None         # the schedule it was ranked on
+    schedule: Optional[str] = None         # winning schedule (auto mode)
 
 
-PERF_LATER = ("ranking by the calibrated time model (minimize='time', "
-              "schedule='auto', calib=) waits for the port of repro/perf")
-
-
-def _check_minimize(minimize: str, calib, schedule: str = "") -> None:
-    """The reference's argument checks, then the refusal of what waits
-    for the perf slice."""
+def _check_minimize(minimize: str) -> None:
     if minimize not in ("comm", "time"):
         raise ValueError(f"minimize must be 'comm' or 'time', "
                          f"got {minimize!r}")
-    if schedule == "auto" and minimize != "time":
-        raise ValueError("schedule='auto' needs minimize='time' — "
-                         "the analytic objective ties all schedules")
-    if minimize == "time" or calib is not None:
-        raise NotImplementedError(PERF_LATER)
+
+
+def _resolve_calib(calib):
+    from repro_torch.perf.calibrate import load_calib
+    return calib if calib is not None else load_calib()
 
 
 def _algo_family(grid: Tuple[int, int, int, int, int]) -> str:
@@ -212,26 +209,41 @@ def synthesize_dist_grid(x_shape, w_shape, n_devices: int, *,
     ``train`` else ``cost_distributed_total`` -- with the runtime
     ``conv_train_comm_elems`` total as tie-break.
 
+    ``minimize="time"`` ranks by the calibrated trace-replay prediction
+    (``repro_torch.perf.predict_conv_step_ms`` under ``calib``, default
+    the table ``load_calib`` resolves) instead of the analytic objective
+    -- per-hop latencies and ring-pipelining overlap then separate grids
+    (and schedules) the element accounting provably ties.  With
+    ``schedule="auto"`` (time mode only) the allgather/ring/ring2
+    schedules enter the search alongside the grids; the winner lands in
+    ``DistGridChoice.schedule``.
+
     ``mem_cap_elems`` optimizes under a per-device memory cap: grids whose
     runtime peak-live accounting (``conv_train_mem_elems`` /
     ``conv_mem_elems`` for ``schedule``) exceeds the cap are discarded --
     the 2.5D/3D memory-for-wire tradeoff as a hard constraint.  The
     ``ring2`` schedule, never materializing a gathered operand, admits
     grids the gather schedules cannot fit.
-
-    ``minimize="time"`` and ``schedule="auto"`` (which needs it) raise
-    ``NotImplementedError`` until the perf slice; a ``minimize`` other
-    than ``"comm"``/``"time"``, or ``"auto"`` without ``"time"``, is a
-    ``ValueError`` as in the reference.
     """
     from repro_torch.core.grid import grid_from_tuple
-    from repro_torch.dist.conv2d import (conv_comm_elems, conv_grid_divides,
+    from repro_torch.dist.conv2d import (_conv_effective_schedule,
+                                         conv_comm_elems, conv_grid_divides,
                                          conv_mem_elems,
                                          conv_train_comm_elems,
                                          conv_train_mem_elems)
     from repro_torch.kernels.ops import pad_amounts
 
-    _check_minimize(minimize, calib, schedule)
+    _check_minimize(minimize)
+    if schedule == "auto":
+        if minimize != "time":
+            raise ValueError("schedule='auto' needs minimize='time' — "
+                             "the analytic objective ties all schedules")
+        schedules = ("allgather", "ring", "ring2")
+    else:
+        schedules = (schedule,)
+    if minimize == "time":
+        calib = _resolve_calib(calib)
+        from repro_torch.perf.predict import predict_conv_step_ms
     if isinstance(stride, int):
         stride = (stride, stride)
     N, C, H, W = x_shape
@@ -255,27 +267,41 @@ def synthesize_dist_grid(x_shape, w_shape, n_devices: int, *,
         model_cost = (cost_model.cost_distributed_train(
             p, n_devices, choice) if train
             else cost_model.cost_distributed_total(p, n_devices, choice))
-        if train:
-            elems = conv_train_comm_elems(x_shape, w_shape, grid,
-                                          stride=stride, padding=padding,
-                                          schedule=schedule)
-            mem = conv_train_mem_elems(x_shape, w_shape, grid,
-                                       stride=stride, padding=padding,
-                                       schedule=schedule)["peak"]
-        else:
-            elems = conv_comm_elems(x_shape, w_shape, grid, stride=stride,
-                                    padding=padding)
-            mem = conv_mem_elems(x_shape, w_shape, grid, stride=stride,
-                                 padding=padding, schedule=schedule)["peak"]
-        if mem_cap_elems is not None and mem > mem_cap_elems:
-            capped_out += 1
-            continue
-        key = (model_cost, elems["total"], grid)
-        if best_key is None or key < best_key:
-            best_key = key
-            best = DistGridChoice(grid=grid, algo=_algo_family(grid),
-                                  model_cost=model_cost, comm_elems=elems,
-                                  mem_elems=mem, schedule=schedule)
+        for sched in schedules:
+            if (len(schedules) > 1
+                    and _conv_effective_schedule(sched, grid) != sched):
+                continue   # falls back to another candidate: skip the dup
+            if train:
+                elems = conv_train_comm_elems(x_shape, w_shape, grid,
+                                              stride=stride,
+                                              padding=padding,
+                                              schedule=sched)
+                mem = conv_train_mem_elems(x_shape, w_shape, grid,
+                                           stride=stride, padding=padding,
+                                           schedule=sched)["peak"]
+            else:
+                elems = conv_comm_elems(x_shape, w_shape, grid,
+                                        stride=stride, padding=padding)
+                mem = conv_mem_elems(x_shape, w_shape, grid, stride=stride,
+                                     padding=padding,
+                                     schedule=sched)["peak"]
+            if mem_cap_elems is not None and mem > mem_cap_elems:
+                capped_out += 1
+                continue
+            pred = None
+            if minimize == "time":
+                pred = predict_conv_step_ms(
+                    x_shape, w_shape, grid, stride=stride, padding=padding,
+                    schedule=sched, train=train, calib=calib)
+                key = (pred, elems["total"], grid)
+            else:
+                key = (model_cost, elems["total"], grid)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = DistGridChoice(grid=grid, algo=_algo_family(grid),
+                                      model_cost=model_cost,
+                                      comm_elems=elems, mem_elems=mem,
+                                      predicted_ms=pred, schedule=sched)
     if best is None:
         raise ValueError(
             f"no (Pb,Ph,Pw,Pk,Pc) factorization of {n_devices} devices "
@@ -303,8 +329,10 @@ def synthesize_cnn_grid(x_shape, channels, n_classes: int,
     summed per-layer ``cost_distributed_train`` with the runtime
     fwd+bwd wire total (``cnn_train_comm_elems``) as tie-break.
     ``mem_cap_elems`` discards grids whose worst per-layer peak
-    (``cnn_train_mem_elems``) exceeds the cap.  ``minimize="time"``
-    raises ``NotImplementedError`` until the perf slice.
+    (``cnn_train_mem_elems``) exceeds the cap.  ``minimize="time"`` ranks
+    by the whole-step trace-replay prediction
+    (``repro_torch.perf.predict_cnn_train_ms`` under ``calib``) instead
+    of the analytic objective.
     """
     from repro_torch.core.grid import grid_from_tuple
     from repro_torch.dist.train import (_cnn_layer_shapes,
@@ -312,7 +340,10 @@ def synthesize_cnn_grid(x_shape, channels, n_classes: int,
                                         cnn_train_mem_elems,
                                         grid_divides_cnn)
 
-    _check_minimize(minimize, calib)
+    _check_minimize(minimize)
+    if minimize == "time":
+        calib = _resolve_calib(calib)
+        from repro_torch.perf.predict import predict_cnn_train_ms
     problems = []
     for (N, C, H, W), (K, _, kh, kw) in _cnn_layer_shapes(
             x_shape, channels, k=k, pool_every=pool_every):
@@ -338,12 +369,20 @@ def synthesize_cnn_grid(x_shape, channels, n_classes: int,
         if mem_cap_elems is not None and mem > mem_cap_elems:
             capped_out += 1
             continue
-        key = (model_cost, comm["total"], grid)
+        pred = None
+        if minimize == "time":
+            pred = predict_cnn_train_ms(x_shape, channels, n_classes,
+                                        grid, k=k, pool_every=pool_every,
+                                        schedule=schedule, calib=calib)
+            key = (pred, comm["total"], grid)
+        else:
+            key = (model_cost, comm["total"], grid)
         if best_key is None or key < best_key:
             best_key = key
             best = DistGridChoice(grid=grid, algo=_algo_family(grid),
                                   model_cost=model_cost, comm_elems=comm,
-                                  mem_elems=mem, schedule=schedule)
+                                  mem_elems=mem, predicted_ms=pred,
+                                  schedule=schedule)
     if best is None:
         raise ValueError(
             f"no (Pb,Ph,Pw,Pk,Pc) factorization of {n_devices} devices "
@@ -381,13 +420,17 @@ def synthesize_serve_grid(cfg, n_devices: int, *, slots: int, max_seq: int,
     per-device peak (weights + grid-sharded KV cache + transients,
     ``lm_serve_mem_elems``) exceeds the cap -- the 2.5D memory/wire
     tradeoff deciding the serving grid under the KV-cache budget.
-    ``minimize="time"`` and ``calib=`` raise ``NotImplementedError``
-    until the perf slice.
+    ``minimize="time"`` replaces the wire rank with the calibrated
+    decode-step replay prediction
+    (``repro_torch.perf.predict_decode_step_ms`` under ``calib``).
     """
     from repro_torch.dist.lm import (lm_decode_matmuls, lm_serve_comm_elems,
                                      lm_serve_mem_elems, projection_routed)
 
-    _check_minimize(minimize, calib)
+    _check_minimize(minimize)
+    if minimize == "time":
+        calib = _resolve_calib(calib)
+        from repro_torch.perf.predict import predict_decode_step_ms
     best: Optional[ServeGridChoice] = None
     best_key = None
     capped_out = 0
@@ -403,13 +446,20 @@ def synthesize_serve_grid(cfg, n_devices: int, *, slots: int, max_seq: int,
         if mem_cap_elems is not None and mem["peak"] > mem_cap_elems:
             capped_out += 1
             continue
-        key = (-routed, comm["total"], mem["peak"], grid)
+        pred = None
+        if minimize == "time":
+            pred = predict_decode_step_ms(cfg, grid, slots=slots,
+                                          schedule=schedule, calib=calib)
+            key = (-routed, pred, mem["peak"], grid)
+        else:
+            key = (-routed, comm["total"], mem["peak"], grid)
         if best_key is None or key < best_key:
             best_key = key
             pm, pn, pc = grid
             best = ServeGridChoice(
                 grid=grid, algo=_algo_family((pm, 1, 1, pn, pc)),
-                routed=routed, comm_elems=comm, mem_elems=mem)
+                routed=routed, comm_elems=comm, mem_elems=mem,
+                predicted_ms=pred)
     if best is None:
         raise ValueError(
             f"no (Pm,Pn,Pc) factorization of {n_devices} devices routes "

@@ -39,6 +39,7 @@ autograd, so every candidate -- and every winner -- has a gradient.
 from __future__ import annotations
 
 import functools
+import math
 import os
 
 import torch
@@ -58,6 +59,56 @@ _DIST_PALLAS_ENV = "REPRO_TORCH_DIST_PALLAS"
 
 def _pallas_enabled() -> bool:
     return os.environ.get(_DIST_PALLAS_ENV, "1") != "0"
+
+
+@functools.lru_cache(maxsize=None)
+def math_gcd_block(extent: int, want: int) -> int:
+    """Largest divisor of ``extent`` not exceeding ``want`` -- by divisor
+    enumeration in O(sqrt(extent)), memoized alongside the plans."""
+    want = min(want, extent)
+    best = 1
+    for d in range(1, math.isqrt(extent) + 1):
+        if extent % d == 0:
+            if d <= want:
+                best = max(best, d)
+            q = extent // d
+            if q <= want:
+                best = max(best, q)
+    return best
+
+
+# --------------------------------------------------------------------------
+# Memoized Eq. 4 block plans (``kernels.tiling``, one solve per shape).  The
+# reference sizes its Pallas blocks with them; the hand-written kernels
+# take their launches from ``kernels._plan`` instead, and these stand
+# beside them as the paper's chip-level plan
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def matmul_plan(m: int, n: int, k: int):
+    """Paper-planned ``(block_m, block_n, block_k)`` for an ``[m,k]@[k,n]``
+    matmul, projected onto exact divisors of the extents."""
+    from repro_torch.kernels import tiling
+
+    bm, bn, bk = tiling.matmul_blocks(m, n, k)
+    return (bm if m % bm == 0 else math_gcd_block(m, bm),
+            bn if n % bn == 0 else math_gcd_block(n, bn),
+            bk if k % bk == 0 else math_gcd_block(k, bk))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(n: int, c: int, k: int, h: int, w: int, kh: int, kw: int):
+    """Paper-planned ``(block_b, block_k, block_c)`` for an NCHW/OIHW conv,
+    projected onto exact divisors."""
+    from repro_torch.core.problem import ConvProblem
+    from repro_torch.kernels import tiling
+
+    prob = ConvProblem.from_conv_layer(batch=n, cin=c, cout=k, h=h, w=w,
+                                       kh=kh, kw=kw)
+    plan = tiling.plan_blocks(prob)
+    return (math_gcd_block(n, max(1, plan.block_bhw // (h * w))),
+            math_gcd_block(k, plan.block_k),
+            math_gcd_block(c, plan.block_c))
 
 
 # --------------------------------------------------------------------------

@@ -511,7 +511,10 @@ def main(argv=None):
                     choices=("allgather", "ring", "ring2"))
     ap.add_argument("--grid", default=None,
                     help='"PmxPnxPc", "auto", or omit for dense')
-    ap.add_argument("--minimize", default="comm", choices=("comm", "time"))
+    ap.add_argument("--minimize", default="comm",
+                    choices=("comm", "time"),
+                    help="--grid auto objective: analytic wire volume "
+                         "or calibrated replay time (CALIB.json)")
     ap.add_argument("--mem-cap-elems", type=float, default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (gloo ranks)")
@@ -534,6 +537,9 @@ def main(argv=None):
     kw = dict(requests=args.requests, prompt_len=args.prompt_len,
               gen=args.gen, slots=args.slots, schedule=args.schedule,
               device=device.type)
+    if args.minimize == "time":
+        from repro_torch.perf.calibrate import provenance_line
+        print(provenance_line(), flush=True)
     if grid == "auto":
         from repro_torch.core.sharding_synthesis import synthesize_serve_grid
         grid = synthesize_serve_grid(

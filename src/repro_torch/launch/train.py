@@ -6,7 +6,11 @@ re-synthesized over the ranks on every (re)start, restore walks back past
 corrupt checkpoints, a watchdog saves on wedged steps, SIGTERM saves and
 stops every rank at the same step, and ``--fault-plan`` (or the
 ``REPRO_FAULT_PLAN`` environment variable the reference reads too)
-injects deterministic failures (``fault/inject.py``).  ``--ranks N``
+injects deterministic failures (``fault/inject.py``).  ``--minimize
+time`` ranks the grids by the calibrated replay (``repro_torch.perf``,
+the table ``load_calib`` resolves: ``REPRO_CALIB``, else the checked-in
+``CALIB.json``) and prints one ``[calib]`` line with that table's
+provenance.  ``--ranks N``
 starts N ranks through ``dist.spawn.run_spmd`` (gloo on the CPU, one card
 each under nccl); a world of one runs in this process, so a SIGTERM sent
 to it reaches the loop.  The ``[resilient]`` and ``[fault]`` lines are the
@@ -95,6 +99,9 @@ def _main_dist_grid(args) -> Dict:
                x_shape=x_shape)
     print(f"[resilient] devices={ranks} steps={args.steps} "
           f"x={x_shape} channels={channels}", flush=True)
+    if args.minimize == "time":
+        from repro_torch.perf.calibrate import provenance_line
+        print(provenance_line(), flush=True)
     report = run_spmd(_train_rank, ranks, cfg, plan, device=device.type)[0]
     print(f"[resilient] grid={report['grid']}", flush=True)
     for i, loss in enumerate(report["losses"]):
@@ -130,9 +137,10 @@ def main(argv=None):
     ap.add_argument("--classes", type=int, default=10)
     ap.add_argument("--schedule", default="allgather",
                     choices=("allgather", "ring", "ring2"))
-    ap.add_argument("--minimize", default="comm", choices=("comm", "time"),
-                    help="grid objective: analytic wire volume, or the "
-                         "calibrated time model (not ported yet)")
+    ap.add_argument("--minimize", default="comm",
+                    choices=("comm", "time"),
+                    help="grid='auto' objective: analytic wire volume "
+                         "or calibrated replay time (CALIB.json)")
     ap.add_argument("--watchdog-timeout", type=float, default=0.0,
                     help="wedged-step watchdog (seconds; 0 disables)")
     ap.add_argument("--fault-plan", default="",

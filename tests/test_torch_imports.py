@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch``, not
 ``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or the
 JAX package ``repro``.  The planner ``repro_torch.core`` and the model
-configurations (``repro_torch.configs``, ``repro_torch.models.config``)
-are pure Python: importing them pulls in neither torch nor
-``torch.distributed`` nor a kernel build."""
+configurations (``repro_torch.configs``, ``repro_torch.models.config``),
+the Eq. 4 block plans (``repro_torch.kernels.tiling``) and the cost
+model (``repro_torch.perf``) are pure Python: importing them pulls in
+neither torch nor ``torch.distributed`` nor a kernel build."""
 
 import ast
 import os
@@ -95,3 +96,35 @@ def test_configs_are_pure_python():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["10", "1498482688"]
+
+
+def test_tiling_and_perf_are_pure_python():
+    """``repro_torch.kernels.tiling`` and ``repro_torch.perf`` import no
+    torch (``perf`` needs numpy; the functions that build its DAGs
+    import the dist accounting when they run) and build no kernel: the
+    plans, a replay and a fit run with torch blocked."""
+    code = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "jaxlib", "repro", "torch"):
+            sys.modules[blocked] = None  # any import of them now fails
+        import repro_torch.perf as perf
+        import repro_torch.perf.bench
+        from repro_torch.core.problem import resnet50_layers
+        from repro_torch.kernels import tiling
+        plan = tiling.plan_blocks(resnet50_layers(64)["res3a_2b"])
+        recs = [{"kind": "all_gather", "elems": 1000.0 * i, "steps": 1,
+                 "wall_ms": 0.1 + 1e-4 * 1000.0 * i} for i in (1, 2, 3)]
+        table = perf.fit_collectives(recs, compute_flops_per_ms=1e9)
+        dag = perf.StepDag((perf.CommEvent("all_gather", 500.0),), 1e9)
+        print(plan.block_bhw, plan.block_k,
+              round(perf.replay_ms(dag, table), 6),
+              perf.load_calib().provenance["platform"])
+    """)
+    env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
+    env.pop("REPRO_CALIB", None)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    bhw, k, ms, platform = proc.stdout.split()
+    assert int(bhw) > 0 and int(k) > 0 and platform == "cpu"
+    assert float(ms) == 1.0 + 0.15

@@ -137,9 +137,9 @@ def test_synthesize_serve_grid_refusals():
                               mem_cap_elems=1.0)
     with pytest.raises(ValueError, match="minimize"):
         synthesize_serve_grid(cfg, 8, slots=4, max_seq=32, minimize="x")
-    for kw in (dict(minimize="time"), dict(calib={})):
-        with pytest.raises(NotImplementedError, match="perf"):
-            synthesize_serve_grid(cfg, 8, slots=4, max_seq=32, **kw)
+    with pytest.raises(ValueError, match="over cap"):
+        synthesize_serve_grid(cfg, 8, slots=4, max_seq=32, minimize="time",
+                              mem_cap_elems=1.0)
 
 
 # --------------------------------------------------- engine vs reference --
