@@ -159,6 +159,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``python -m repro_torch.launch.train --mesh dist-grid --minimize
    time`` for 2 steps with ``REPRO_CALIB`` at the card's table: it must
    print the table's provenance and the grid the synthesizer picks.
+10. the zoo, through the port's static ``launch.serve.Engine`` (no
+   hand-written kernel: the reference's zoo runs none; their launches
+   over the phase are printed under the ``zoo`` path, not gated):
+   zamba2-7b at its published widths and full depth (81 Mamba2 layers,
+   d = 3584, 13 shared-attention applications) in bf16, random weights
+   drawn on the card, 8 prompts of 64 tokens and 32 new tokens each
+   (prefill ms, decode p50/p99 from CUDA events between the steps,
+   served tokens/s, weight and peak allocated bytes, device-busy ms and
+   the top kernels of one profiled decode step, the host's share, and
+   the share of the step's byte bound: every weight read once, the
+   recurrent states read and written once, the valid K/V rows read),
+   gated: every logit finite, and prefill(63 tokens) then one decode
+   step within ``TF_BF16_RTOL`` of max|logit| of prefill(64 tokens);
+   zamba2-7b cut to 6 layers (one shared application) and xlstm-350m at
+   full depth, f32, card against the CPU on the same weights, 2 prompts
+   of 32 tokens and 4 teacher-forced decode steps, within ``TF_RTOL``;
+   whisper-tiny in f32 the same way through ``prefill_encdec`` /
+   ``decode_step_encdec`` with 1500 encoder frames and a 4-token prompt;
+   xlstm-350m and whisper-tiny then served in bf16 like zamba2-7b; the
+   three smoke configs' greedy tokens on the card equal to the CPU's in
+   f32.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -240,6 +261,16 @@ TF_RTOL = 1e-3   # teacher-forced logits, grid vs dense, of max|logit|
 # layers, sqrt(8) x 1.33e-2 = 3.8e-2 if its rounding noise grew like a
 # full re-rounding's: the gate is the 5e-2 cap
 TF_BF16_RTOL = 5e-2
+# phase 10: the zoo through the static Engine, at published widths
+ZOO_HYBRID, ZOO_SSM, ZOO_ENCDEC = "zamba2-7b", "xlstm-350m", "whisper-tiny"
+ZOO_SLOTS, ZOO_PROMPT, ZOO_GEN = 8, 64, 32
+ZOO_TF_SLOTS, ZOO_TF_PROMPT, ZOO_TF_STEPS = 2, 32, 4
+ZOO_CUT_LAYERS = 6   # zamba2-7b f32 against the CPU: one shared application
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 4   # 30 s of audio at 50 frames/s
+# xlstm-350m's random sLSTM recurrence is chaotic (one ulp more in the
+# embedding moves its logits at 32 prompt tokens by O(1), printed beside):
+# card against CPU at 2 prompt tokens + 4 steps
+XLSTM_TF_PROMPT = 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2135,6 +2166,339 @@ def perf_phase(card, rows, static, resilient_ms, serve_stats):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the model zoo served through the static Engine
+# --------------------------------------------------------------------------
+
+def _leaves(tree):
+    """The tensors of nested dicts and lists (``None`` left out)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [] if tree is None else [tree]
+
+
+def _to(tree, device):
+    """Nested dicts and lists of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _zoo_cfg(arch, dtype=None, **cut):
+    """``arch``'s published config at ``dtype`` (``None``: its own,
+    bfloat16), with the fields in ``cut`` replaced."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype, **cut)
+
+
+def _zoo_step_bytes(cfg, params, cache) -> float:
+    """The least bytes one decode step of ``ZOO_SLOTS`` slots moves at
+    prompt length: every weight but the embedding table read once (and
+    one table row per slot), the recurrent states (SSD, conv contexts,
+    sLSTM cells) read and written once, and the K/V rows valid at that
+    length read (the shared block's, the decoder's self and cross
+    rows)."""
+    tok = params["emb"]["tok"]
+    weights = _nbytes(_leaves(params)) - _nbytes([tok]) \
+        + ZOO_SLOTS * tok.shape[1] * tok.element_size()
+    kv = [cache[k] for k in ("k", "v") if k in cache]
+    kv_bytes = _nbytes(kv) * ZOO_PROMPT / cache["k"].shape[2] if kv else 0.0
+    kv_bytes += _nbytes([cache[k] for k in ("xk", "xv") if k in cache])
+    state = [t for k, v in cache.items()
+             if k not in ("k", "v", "xk", "xv", "len")
+             for t in _leaves(v)]
+    return weights + kv_bytes + 2 * _nbytes(state)
+
+
+def _zoo_engine(cfg, params, prompts):
+    """``prompts`` through the port's static ``Engine`` (``ZOO_GEN`` new
+    tokens each), after a two-token warm-up run on the same prompts:
+    (tokens, prefill s, decode s, per-step decode ms, peak bytes)."""
+    from repro_torch.launch.serve import Engine
+
+    engine = Engine(cfg, params, slots=ZOO_SLOTS,
+                    max_seq=ZOO_PROMPT + ZOO_GEN)
+    engine.run(prompts, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    toks, t_pre, t_dec = engine.run(prompts, ZOO_GEN)
+    return (toks, t_pre, t_dec, list(engine.decode_ms),
+            torch.cuda.max_memory_allocated())
+
+
+def _zoo_prefill(fns, cfg, params, cache, toks, frames=None):
+    if cfg.family == "encdec":
+        return fns.prefill(params, cfg, cache, frames, toks)
+    return fns.prefill(params, cfg, cache, toks)
+
+
+def _zoo_profiled_step(cfg, params, prompts, device):
+    """One profiled decode step after a prefill of ``prompts``, and the
+    cache it ran on: (profile, cache, the step's logits)."""
+    from repro_torch.models.api import model_fns
+
+    fns = model_fns(cfg)
+    b, s = prompts.shape
+    with torch.inference_mode():
+        cache = fns.init_cache(cfg, b, s + ZOO_GEN, enc_len=s,
+                               device=device)
+        frames = torch.zeros((b, s, cfg.d_model), device=device)
+        _, cache = _zoo_prefill(fns, cfg, params, cache, prompts, frames)
+        tok = prompts[:, -1:]
+        logits, _ = fns.decode_step(params, cfg, cache, tok)    # warm
+        prof = _profile(lambda: fns.decode_step(params, cfg, cache, tok), 1,
+                        "decode_steps")
+    return prof, cache, logits
+
+
+def _zoo_prefill_logits(cfg, params, prompts, device, max_seq):
+    """(logits, cache) of one prefill of ``prompts`` into a fresh cache
+    of ``max_seq`` positions."""
+    from repro_torch.models.api import model_fns
+
+    fns = model_fns(cfg)
+    with torch.inference_mode():
+        cache = fns.init_cache(cfg, prompts.shape[0], max_seq,
+                               device=device)
+        return fns.prefill(params, cfg, cache, prompts)
+
+
+def _zoo_continuation(cfg, params, prompts, device) -> dict:
+    """Prefill ``prompts[:, :-1]``, decode the last token, and hold its
+    logits against one prefill of all of ``prompts`` (the reference's
+    ``tests/test_archs.py`` check): max|step - prefill| / max|prefill|.
+    Beside it, the same full prefill with the chunked recurrence at
+    chunk 32 (the same math, its f32 sums in another order): the rounding
+    noise the check cannot go below.  Every logit must be finite."""
+    from repro_torch.models.api import model_fns
+
+    s = prompts.shape[1]
+    first, cache = _zoo_prefill_logits(cfg, params, prompts[:, :-1],
+                                       device, s)
+    with torch.inference_mode():
+        step, _ = model_fns(cfg).decode_step(params, cfg, cache,
+                                             prompts[:, -1:])
+    del cache
+    full, _ = _zoo_prefill_logits(cfg, params, prompts, device, s)
+    chunk32, _ = _zoo_prefill_logits(
+        dataclasses.replace(cfg, ssm_chunk=32), params, prompts, device, s)
+    for name, lg in (("prefill", first), ("step", step), ("full", full),
+                     ("chunk-32 prefill", chunk32)):
+        check(bool(torch.isfinite(lg).all()),
+              f"{cfg.arch_id} {cfg.dtype}: non-finite logits in the {name}")
+    scale = float(full.abs().max())
+    return {"continuation_rel_err": float((step - full).abs().max()) / scale,
+            "chunk32_rel_diff": float((chunk32 - full).abs().max()) / scale}
+
+
+def _zoo_serve(card, cfg, device, gen, label, extra=None):
+    """``cfg`` at its published widths, random weights from ``gen`` on
+    the card, served through ``Engine`` (``ZOO_SLOTS`` prompts of
+    ``ZOO_PROMPT`` tokens, ``ZOO_GEN`` new); one decode step profiled;
+    the summary printed and returned.  ``extra(params, prompts)`` gives
+    more keys of the summary."""
+    from repro_torch.models.api import model_fns
+
+    t0 = time.perf_counter()
+    params = model_fns(cfg).init(gen.manual_seed(SEED), cfg, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (ZOO_SLOTS, ZOO_PROMPT))).to(device, torch.int32)
+    toks, t_pre, t_dec, step_ms, peak = _zoo_engine(cfg, params, prompts)
+    check(tuple(toks.shape) == (ZOO_SLOTS, ZOO_GEN),
+          f"{label}: served {tuple(toks.shape)} tokens")
+    prof, cache, logits = _zoo_profiled_step(cfg, params, prompts, device)
+    check(bool(torch.isfinite(logits).all()),
+          f"{label}: non-finite decode logits")
+    step_bytes = _zoo_step_bytes(cfg, params, cache)
+    del cache
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    p50 = statistics.median(step_ms)
+    n_tok = ZOO_SLOTS * ZOO_GEN
+    summary = {
+        "phase": "zoo", "arch": cfg.arch_id, "card": card,
+        "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "engine": "static", "slots": ZOO_SLOTS,
+        "prompt_tokens": ZOO_PROMPT, "new_tokens": ZOO_GEN,
+        "init_s": init_s, "prefill_ms": t_pre * 1e3,
+        "decode_ms_total": t_dec * 1e3,
+        "p50_decode_ms": p50,
+        "p99_decode_ms": sorted(step_ms)[min(int(0.99 * len(step_ms)),
+                                             len(step_ms) - 1)],
+        "mean_decode_ms": statistics.mean(step_ms),
+        # every token over the serve window, the prefill's first included
+        "tokens_per_s": n_tok / (t_pre + t_dec),
+        "decode_tokens_per_s": ZOO_SLOTS * (ZOO_GEN - 1) / t_dec,
+        "weight_bytes": _nbytes(_leaves(params)),
+        "decode_step_bound_bytes": step_bytes,
+        "decode_bound_ms": bound_ms, "decode_bound_share": bound_ms / p50,
+        "peak_allocated_bytes": peak,
+        "device_busy_ms_per_step": prof["device_busy_ms"],
+        "host_share_of_step": 1.0 - prof["device_busy_share"],
+        "profile": prof}
+    if extra is not None:
+        summary.update(extra(params, prompts))
+    print(json.dumps(summary), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _zoo_card_vs_cpu(cfg, device, gen, frames_len=None, prompt=ZOO_TF_PROMPT,
+                    sensitivity=False):
+    """``cfg`` in float32, weights drawn on the card and copied to the
+    CPU; ``ZOO_TF_SLOTS`` prompts prefilled, then ``ZOO_TF_STEPS`` decode
+    steps fed the same drawn tokens on both devices: max|card - cpu| /
+    max|cpu| of the logits at the prefill and every step.  With
+    ``sensitivity``, also the CPU against itself with the embedding table
+    one float32 ulp larger (x (1 + 2^-23)): how far the model itself moves
+    two runs that differ by rounding."""
+    from repro_torch.models.api import model_fns
+
+    fns = model_fns(cfg)
+    params = fns.init(gen.manual_seed(SEED), cfg, device=device)
+    cpu_params = _to(params, "cpu")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = rng.integers(0, cfg.vocab, (ZOO_TF_SLOTS, prompt))
+    forced = rng.integers(0, cfg.vocab, (ZOO_TF_STEPS, ZOO_TF_SLOTS, 1))
+    frames = (rng.standard_normal((ZOO_TF_SLOTS, frames_len, cfg.d_model),
+                                  dtype=np.float32)
+              if frames_len else None)
+
+    def run(p, dev):
+        out = []
+        with torch.inference_mode():
+            cache = fns.init_cache(cfg, ZOO_TF_SLOTS, prompt + ZOO_TF_STEPS,
+                                   enc_len=frames_len, device=dev)
+            toks = torch.from_numpy(prompts).to(dev, torch.int32)
+            fr = None if frames is None else torch.from_numpy(frames).to(dev)
+            logits, cache = _zoo_prefill(fns, cfg, p, cache, toks, fr)
+            out.append(logits.cpu())
+            for t in forced:
+                logits, cache = fns.decode_step(
+                    p, cfg, cache, torch.from_numpy(t).to(dev, torch.int32))
+                out.append(logits.cpu())
+        return out
+
+    def errs(got, want):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want)]
+
+    card_lg = run(params, device)
+    del params
+    torch.cuda.empty_cache()
+    cpu_lg = run(cpu_params, "cpu")
+    if not sensitivity:
+        return errs(card_lg, cpu_lg), None
+    emb = cpu_params["emb"]
+    nudged = dict(cpu_params, emb=dict(emb, tok=emb["tok"] * (1 + 2 ** -23)))
+    return errs(card_lg, cpu_lg), errs(run(nudged, "cpu"), cpu_lg)
+
+
+def _zoo_smoke_tokens(arch, device):
+    """The smoke config in float32 through ``Engine`` with CPU-generator
+    weights: (the card's greedy tokens, the CPU's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models.api import model_fns
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = model_fns(cfg).init(torch.Generator().manual_seed(SEED), cfg,
+                                 device="cpu")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (4, 16))
+    out = []
+    for p in (_to(params, device), params):
+        engine = Engine(cfg, p, slots=4, max_seq=16 + 8)
+        out.append(engine.run(prompts, 8)[0].cpu().tolist())
+    return out
+
+
+def zoo_phase(card):
+    """Phase 10: xlstm-350m, whisper-tiny and zamba2-7b through the port's
+    static ``Engine`` (see the module docstring); the hand-written
+    kernels' launches over the phase, printed, not gated."""
+    import gc
+
+    from repro_torch.models.api import model_fns
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    _zero_counts()
+    cfg_z = _zoo_cfg(ZOO_HYBRID)
+    zamba = _zoo_serve(card, cfg_z, device, gen, "zamba2-7b bf16",
+                       lambda params, prompts: _zoo_continuation(
+                           cfg_z, params, prompts, device))
+    # the continuation at the same widths and depth in float32, where the
+    # rounding noise is far below the gate
+    cfg_f = _zoo_cfg(ZOO_HYBRID, "float32")
+    params = model_fns(cfg_f).init(gen.manual_seed(SEED), cfg_f,
+                                   device=device)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg_f.vocab, (ZOO_SLOTS, ZOO_PROMPT))).to(device, torch.int32)
+    cont_f32 = _zoo_continuation(cfg_f, params, prompts, device)
+    del params
+    torch.cuda.empty_cache()
+    tf = {"zamba2-7b f32 6 layers": _zoo_card_vs_cpu(
+        _zoo_cfg(ZOO_HYBRID, "float32", n_layers=ZOO_CUT_LAYERS), device,
+        gen)[0]}
+    xlstm_f32 = _zoo_cfg(ZOO_SSM, "float32")
+    tf["xlstm-350m f32"] = _zoo_card_vs_cpu(xlstm_f32, device, gen,
+                                            prompt=XLSTM_TF_PROMPT)[0]
+    chaos = dict(zip(("card_vs_cpu", "cpu_vs_cpu_one_ulp"), _zoo_card_vs_cpu(
+        xlstm_f32, device, gen, sensitivity=True)))
+    xlstm = _zoo_serve(card, _zoo_cfg(ZOO_SSM), device, gen, "xlstm bf16")
+    tf["whisper-tiny f32"] = _zoo_card_vs_cpu(
+        _zoo_cfg(ZOO_ENCDEC, "float32"), device, gen,
+        frames_len=WHISPER_FRAMES, prompt=WHISPER_PROMPT)[0]
+    whisper = _zoo_serve(card, _zoo_cfg(ZOO_ENCDEC), device, gen,
+                         "whisper bf16")
+    smoke = {arch: _zoo_smoke_tokens(arch, device)
+             for arch in (ZOO_SSM, ZOO_HYBRID, ZOO_ENCDEC)}
+    launches = _launch_counts()
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({
+        "phase": "zoo", "card": card, "phase_s": phase_s,
+        "teacher_forced_rel_err": tf,
+        "zamba2_continuation": {
+            "bfloat16": {k: zamba[k] for k in ("continuation_rel_err",
+                                               "chunk32_rel_diff")},
+            "float32": cont_f32},
+        f"xlstm_f32_at_{ZOO_TF_PROMPT}_prompt_tokens": chaos,
+        "smoke_tokens_equal_cpu": {a: c == h for a, (c, h) in smoke.items()},
+        "kernel_launches": launches,
+        "cut": f"zamba2-7b f32 against the CPU at {ZOO_CUT_LAYERS} of 81 "
+               f"layers (one shared application): the CPU side of the "
+               f"full depth would take minutes; xlstm-350m f32 against the "
+               f"CPU at {XLSTM_TF_PROMPT}-token prompts: its random sLSTM "
+               f"recurrence grows a one-ulp difference to O(1) within 32 "
+               f"steps (printed beside)"}), flush=True)
+    check(cont_f32["continuation_rel_err"] <= TF_RTOL,
+          f"zamba2-7b f32: prefill-then-decode vs the longer prefill "
+          f"{cont_f32['continuation_rel_err']:.3e} > {TF_RTOL}")
+    for name, per_step in tf.items():
+        check(max(per_step) <= TF_RTOL,
+              f"{name}, card vs CPU: teacher-forced logits "
+              f"{max(per_step):.3e} > {TF_RTOL}")
+    for arch, (on_card, on_cpu) in smoke.items():
+        check(on_card == on_cpu, f"{arch} smoke: the card's greedy tokens "
+              f"differ from the CPU's")
+    return launches, {"zamba2-7b": zamba, "xlstm-350m": xlstm,
+                      "whisper-tiny": whisper}
+
+
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
                  launches, by_path):
     """One kernel's line: errors over every shape checked, times summed
@@ -2235,13 +2599,15 @@ def main() -> int:
     serve, serve_stats = serve_phase(card)
     perf = perf_phase(card, dict(rows, skinny=serve_rows["skinny"]),
                       static, resilient_ms, serve_stats)
+    zoo, _ = zoo_phase(card)
 
     def by_path(name):
         counts = {"infer": infer.get(name, 0),
                   **{f"train_{m}": train[m][name]
                      for m in MODES + (SG_MODE,)},
                   "train_resilient": resilient[name],
-                  "warm": warm[name], "perf": perf[name]}
+                  "warm": warm[name], "perf": perf[name],
+                  "zoo": zoo[name]}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts
 

@@ -3,8 +3,9 @@
 Each module defines ``config()`` (the exact published configuration) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).  The
 port of ``repro/configs``: the same data, published widths unchanged.
-The ``ssm``, ``hybrid`` and ``encdec`` configurations are data only here;
-the port serves the transformer families (``launch.serve``).
+``launch.serve`` serves every one: the transformer families through its
+continuous-batching engine, the ``ssm``, ``hybrid`` and ``encdec`` ones
+through its static ``Engine``.
 """
 
 from __future__ import annotations

@@ -32,18 +32,26 @@ reference's: a bounded queue (``max_queue``), per-request deadlines, and
 a decode watchdog (``decode_watchdog_timeout_s``) that snapshots the
 engine's bookkeeping to ``state_dump_path`` when a decode step wedges,
 reporting to ``fault_log``; an ``injector`` fires at the ``"decode"``
-point of every iteration (``fault/inject.py``).  The static ``Engine``
-for the non-transformer families waits for the zoo slice.
+point of every iteration (``fault/inject.py``).
+
+The ``ssm``, ``hybrid`` and ``encdec`` families (xlstm-350m, zamba2-7b,
+whisper-tiny) serve through the static :class:`Engine`: one prefill of
+a ``[B,S]`` prompt batch, then batched greedy decode, as the
+reference's.
 
 CLI::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
 
 On a card the first serves on one rank (``--grid PmxPnxPc`` or ``auto``
 with ``Pm*Pn*Pc`` cards); ``--smoke`` serves the smoke config on the
 ``(2,2,2)`` grid over 8 ranks (gloo on the CPU) and dense, and exits 1
-if the greedy tokens diverge.
+if the greedy tokens diverge.  A zoo ``--arch`` serves ``--requests``
+prompts of ``--prompt-len`` tokens through :class:`Engine` at the
+config's dtype (``--smoke``: the smoke config), with weights drawn from
+a seeded generator on the device.
 """
 
 from __future__ import annotations
@@ -114,8 +122,7 @@ class ContinuousEngine:
         if cfg.family not in _TRANSFORMER_FAMILIES:
             raise ValueError(
                 f"continuous batching covers {_TRANSFORMER_FAMILIES}; "
-                f"family {cfg.family!r} serves via the static Engine, which "
-                f"waits for the zoo slice of the port")
+                f"family {cfg.family!r} serves via the static Engine")
         self._lm = lm_mod
         self.cfg, self.params = cfg, params
         self.device = params["emb"]["tok"].device
@@ -390,6 +397,89 @@ class ContinuousEngine:
         }
 
 
+class Engine:
+    """Static-slot batched engine (one prefill, then batched greedy
+    decode) on the device of ``params``: the serving engine of the
+    non-transformer families (encdec/ssm/hybrid), whose serve functions
+    take no serving grid; the transformer families serve through
+    :class:`ContinuousEngine`.
+
+    The reference jits the decode step with the cache donated; here each
+    step is an eager call under ``torch.inference_mode()`` that writes
+    the cache in place.  No step reads a value on the host, so the host
+    queues the steps ahead of the device.  ``decode_ms`` holds each
+    step's time: on a card the CUDA events recorded between the steps,
+    which include any wait for the host; on the CPU the host clock.
+    """
+
+    def __init__(self, cfg, params, *, slots: int, max_seq: int):
+        from repro_torch.models.api import model_fns
+        self.cfg = cfg
+        self.fns = model_fns(cfg)
+        self.params = params
+        self.slots = slots
+        self.max_seq = max_seq
+        self.device = params["emb"]["tok"].device
+        self.decode_ms: List[float] = []
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _mark(self):
+        """A point between two steps: a recorded CUDA event on a card,
+        the host clock elsewhere."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def _elapsed_ms(self, a, b) -> float:
+        if self.device.type != "cuda":
+            return (b - a) * 1e3
+        return a.elapsed_time(b)
+
+    @torch.inference_mode()
+    def run(self, prompts, gen: int):
+        """``prompts`` [B,S] int (B <= ``slots``) -> (tokens [B, gen]
+        int32 on the device, prefill s, decode s).  For encdec the
+        encoder gets zero frames of S positions, as the reference's."""
+        prompts = torch.as_tensor(prompts, dtype=torch.int32,
+                                  device=self.device)
+        b, s = prompts.shape
+        if b > self.slots or s + gen - 1 > self.max_seq:
+            raise ValueError(f"{b} prompts of {s} tokens + {gen} new need "
+                             f"{b} slots and {s + gen - 1} positions; the "
+                             f"engine has {self.slots} and {self.max_seq}")
+        cache = self.fns.init_cache(self.cfg, b, self.max_seq, enc_len=s,
+                                    device=self.device)
+        t0 = time.perf_counter()
+        if self.cfg.family == "encdec":
+            frames = torch.zeros((b, s, self.cfg.d_model),
+                                 dtype=torch.float32, device=self.device)
+            logits, cache = self.fns.prefill(self.params, self.cfg, cache,
+                                             frames, prompts)
+        else:
+            logits, cache = self.fns.prefill(self.params, self.cfg, cache,
+                                             prompts)
+        out = [logits[:, -1:].argmax(-1).to(torch.int32)]
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        marks = [self._mark()]
+        for _ in range(gen - 1):
+            logits, cache = self.fns.decode_step(self.params, self.cfg,
+                                                 cache, out[-1])
+            out.append(logits[:, -1:].argmax(-1).to(torch.int32))
+            marks.append(self._mark())
+        self._sync()
+        t_decode = time.perf_counter() - t0
+        self.decode_ms = [self._elapsed_ms(a, e)
+                          for a, e in zip(marks, marks[1:])]
+        return torch.cat(out, dim=1), t_prefill, t_decode
+
+
 # ------------------------------------------------------------------ run ---
 
 def _make_requests(cfg, *, requests: int, prompt_len: int, gen: int,
@@ -497,6 +587,27 @@ def _serve_rank(rank: int, cfg, kw: Dict) -> Dict:
     return run(cfg, **kw)
 
 
+def _serve_static(cfg, args, device):
+    """The CLI's non-transformer branch, as the reference's: weights from
+    seed 0, ``--requests`` prompts of ``--prompt-len`` tokens from seed 1,
+    one :class:`Engine` run."""
+    from repro_torch.models.api import model_fns
+
+    params = model_fns(cfg).init(torch.Generator(device).manual_seed(0),
+                                 cfg, device=device)
+    engine = Engine(cfg, params, slots=args.requests,
+                    max_seq=args.prompt_len + args.gen)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (args.requests, args.prompt_len))
+    toks, t_pre, t_dec = engine.run(prompts, args.gen)
+    n_tok = args.requests * args.gen
+    print(f"[serve] {cfg.arch_id} ({cfg.dtype}) on {device.type}: prefill "
+          f"{t_pre * 1e3:.1f}ms, decode {t_dec * 1e3:.1f}ms for {n_tok} "
+          f"tokens ({n_tok / max(t_dec, 1e-9):.0f} tok/s), output "
+          f"{tuple(toks.shape)}")
+    return toks
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
@@ -526,9 +637,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = serve_config(args.arch, smoke=args.smoke)
     if cfg.family not in _TRANSFORMER_FAMILIES:
-        raise NotImplementedError(
-            f"serving family {cfg.family!r} needs the static Engine, which "
-            f"waits for the zoo slice of the port")
+        return _serve_static(cfg, args, device)
 
     # smoke pins the 2.5D (2,2,2) grid, as the reference's does
     grid = args.grid or (SMOKE_GRID if args.smoke else None)

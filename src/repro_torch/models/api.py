@@ -1,18 +1,19 @@
 """Uniform model API: the family registry of init / forward / serve
 functions -- the port of ``repro/models/api.py``.
 
-Every transformer architecture exposes::
+Every architecture exposes::
 
   init(generator, cfg, *, device=None) -> params
   loss(params, cfg, batch) -> scalar                 (waits for LM training)
-  forward(params, cfg, tokens, ...) -> hidden
+  forward(params, cfg, tokens, ...) -> hidden        (None for encdec)
   init_cache(cfg, batch, max_seq, **kw) -> cache     (serve state)
-  prefill(params, cfg, cache, tokens, ...) -> (logits, cache)
+  prefill(params, cfg, cache, ...) -> (logits, cache)
   decode_step(params, cfg, cache, tokens) -> (logits, cache)
 
-The ``ssm``, ``hybrid`` and ``encdec`` families (``models/ssm_lm.py``,
-``hybrid.py``, ``encdec.py`` in the reference) wait for the zoo slice:
-:func:`model_fns` raises ``NotImplementedError`` for them.
+``init_cache`` takes ``device=`` (``cuda`` by default), the transformer
+families ``per_slot=`` and the encoder-decoder ``enc_len=`` (default
+``max_seq``).  Every family's loss needs ``chunked_cross_entropy``,
+which comes with the LM-training slice: ``loss`` raises until then.
 """
 
 from __future__ import annotations
@@ -20,13 +21,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, hybrid, lm, ssm_lm
 from repro_torch.models.config import ModelConfig
 
-ZOO_LATER = ("the {family!r} family waits for the zoo slice of the port "
-             "(repro/models/ssm_lm.py, hybrid.py, encdec.py)")
-LM_TRAINING_LATER = ("loss_lm waits for the LM-training slice of the port "
-                     "(chunked_cross_entropy, the flash-attention backward)")
+LM_TRAINING_LATER = ("the LM losses wait for the LM-training slice of the "
+                     "port (chunked_cross_entropy, the flash-attention "
+                     "backward)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,14 +50,37 @@ _TRANSFORMER = ModelFns(
         device=kw.get("device")),
     prefill=lm.prefill, decode_step=lm.decode_step)
 
+_SSM = ModelFns(
+    init=ssm_lm.init_ssm_lm, loss=_loss_later,
+    forward=ssm_lm.forward_ssm_lm,
+    init_cache=lambda cfg, batch, max_seq, **kw: ssm_lm.init_cache_ssm(
+        cfg, batch, max_seq, device=kw.get("device")),
+    prefill=ssm_lm.prefill_ssm, decode_step=ssm_lm.decode_step_ssm)
+
+_HYBRID = ModelFns(
+    init=hybrid.init_hybrid, loss=_loss_later,
+    forward=hybrid.forward_hybrid,
+    init_cache=lambda cfg, batch, max_seq, **kw: hybrid.init_cache_hybrid(
+        cfg, batch, max_seq, device=kw.get("device")),
+    prefill=hybrid.prefill_hybrid, decode_step=hybrid.decode_step_hybrid)
+
+_ENCDEC = ModelFns(
+    init=encdec.init_encdec, loss=_loss_later,
+    forward=None,
+    init_cache=lambda cfg, batch, max_seq, **kw: encdec.init_cache_encdec(
+        cfg, batch, max_seq, kw.get("enc_len", max_seq),
+        device=kw.get("device")),
+    prefill=encdec.prefill_encdec, decode_step=encdec.decode_step_encdec)
+
 FAMILIES: Dict[str, ModelFns] = {
     "dense": _TRANSFORMER,
     "moe": _TRANSFORMER,
     "vlm": _TRANSFORMER,
+    "ssm": _SSM,
+    "hybrid": _HYBRID,
+    "encdec": _ENCDEC,
 }
 
 
 def model_fns(cfg: ModelConfig) -> ModelFns:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(ZOO_LATER.format(family=cfg.family))
     return FAMILIES[cfg.family]

@@ -1,0 +1,184 @@
+"""Whisper-style encoder-decoder backbone (family "encdec") -- the port of
+``repro/models/encdec.py``, its serving half.
+
+As in the reference the audio frontend (log-mel + conv downsampling) is a
+STUB: the caller gives precomputed frame embeddings [B, T, d].  The
+backbone is the real thing: bidirectional encoder, causal decoder with
+cross-attention, KV-cache decode (self + cross caches).  The reference
+scans stacked layers; here each layer is a dict in ``params["enc"]`` /
+``params["dec"]`` and the stacks are Python loops.  The cache keeps the
+reference's stacked layout; ``prefill_encdec`` and
+``decode_step_encdec`` write it in place and return a dict sharing those
+tensors with the new ``len``.  ``loss_encdec`` waits for LM training.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+
+
+def init_encdec(generator: torch.Generator, cfg: ModelConfig, *,
+                device=None) -> Dict:
+    """Random parameters drawn from ``generator``, scaled as the
+    reference's ``init_encdec``, on ``device`` (``cuda`` by default)."""
+    device = resolve_device(device)
+    dt = cfg.torch_dtype
+
+    def norm():
+        return L.init_rmsnorm(cfg.d_model, dt, device)
+
+    def attn():
+        return L.init_attention(generator, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.head_dim, dt, device)
+
+    def mlp():
+        return L.init_mlp(generator, cfg.d_model, cfg.d_ff, "gelu", dt,
+                          device)
+
+    return {
+        "emb": L.init_embeddings(generator, cfg.vocab, cfg.d_model, dt,
+                                 device),
+        "enc": [{"ln1": norm(), "ln2": norm(), "attn": attn(), "mlp": mlp()}
+                for _ in range(cfg.n_enc_layers)],
+        "dec": [{"ln1": norm(), "ln2": norm(), "ln3": norm(),
+                 "attn": attn(), "xattn": attn(), "mlp": mlp()}
+                for _ in range(cfg.n_layers)],
+        "ln_enc": norm(),
+        "ln_f": norm(),
+    }
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """frames: [B, T, d] precomputed frame embeddings (stub frontend)."""
+    b, t, _ = frames.shape
+    positions = _positions(b, t, frames.device)
+    h = frames.to(cfg.torch_dtype)
+    for blk in params["enc"]:
+        h = h + L.attention(blk["attn"],
+                            L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
+                            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                            head_dim=cfg.head_dim, positions=positions,
+                            theta=cfg.rope_theta, causal=False)
+        h = h + L.mlp(blk["mlp"], L.rmsnorm(h, blk["ln2"], cfg.norm_eps),
+                      "gelu")
+    return L.rmsnorm(h, params["ln_enc"], cfg.norm_eps)
+
+
+def _xkv(blk: Dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    b, t, _ = enc_out.shape
+    k = (enc_out @ blk["xattn"]["wk"]).reshape(b, t, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    v = (enc_out @ blk["xattn"]["wv"]).reshape(b, t, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    return k, v
+
+
+def _cross(blk: Dict, h: torch.Tensor, xk, xv, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """Cross-attention of the decoder tokens on the encoder's K/V (the
+    queries roped at position 0, the identity, as the reference)."""
+    b, s, _ = h.shape
+    return L.attention(blk["xattn"], L.rmsnorm(h, blk["ln2"], cfg.norm_eps),
+                       n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim,
+                       positions=torch.zeros((b, s), dtype=torch.int32,
+                                             device=h.device),
+                       theta=cfg.rope_theta, causal=False,
+                       kv_override=(xk, xv))
+
+
+def _mlp(blk: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return L.mlp(blk["mlp"], L.rmsnorm(h, blk["ln3"], cfg.norm_eps), "gelu")
+
+
+def decode_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 enc_out: torch.Tensor) -> torch.Tensor:
+    """The decoder's forward: tokens [B,S] -> hidden [B,S,d]
+    (final-normed)."""
+    b, s = tokens.shape
+    h = L.embed(params["emb"], tokens)
+    positions = _positions(b, s, tokens.device)
+    for blk in params["dec"]:
+        h = h + L.attention(blk["attn"],
+                            L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
+                            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                            head_dim=cfg.head_dim, positions=positions,
+                            theta=cfg.rope_theta, causal=True)
+        h = h + _cross(blk, h, *_xkv(blk, enc_out, cfg), cfg)
+        h = h + _mlp(blk, h, cfg)
+    return L.rmsnorm(h, params["ln_f"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------- serve ---
+
+def init_cache_encdec(cfg: ModelConfig, batch: int, max_seq: int,
+                      enc_len: int, *, device=None) -> Dict:
+    """Self-attention K/V rows [L,B,max_seq,G,hd] and the cross K/V of
+    ``enc_len`` encoder frames, on ``device`` (``cuda`` by default)."""
+    device = resolve_device(device)
+    kv = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    xkv = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = dict(dtype=cfg.torch_dtype, device=device)
+    return {
+        "k": torch.zeros(kv, **dt), "v": torch.zeros(kv, **dt),
+        "xk": torch.zeros(xkv, **dt), "xv": torch.zeros(xkv, **dt),
+        "len": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def prefill_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
+                   frames: torch.Tensor, tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """Encode, write the cross K/V, run the decoder prompt and fill its
+    self K/V.  Returns the last position's logits [B,1,V] f32 and the
+    cache with ``len = S``."""
+    enc_out = encode(params, cfg, frames)
+    b, s = tokens.shape
+    h = L.embed(params["emb"], tokens)
+    positions = _positions(b, s, tokens.device)
+    for i, blk in enumerate(params["dec"]):
+        h = h + lm._prefill_attention(blk, h, cache["k"][i], cache["v"][i],
+                                      cfg=cfg, positions=positions,
+                                      window=0)
+        xk, xv = _xkv(blk, enc_out, cfg)
+        cache["xk"][i] = xk
+        cache["xv"][i] = xv
+        h = h + _cross(blk, h, xk, xv, cfg)
+        h = h + _mlp(blk, h, cfg)
+    length = torch.tensor(s, dtype=torch.int32, device=tokens.device)
+    return lm._head(params, cfg, h[:, -1:], None), dict(cache, len=length)
+
+
+def decode_step_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
+                       tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """tokens: [B,1] -> (logits [B,1,V] f32, cache with ``len + 1``).
+    The self-attention's scalar ``pos`` goes in as a per-slot vector, so
+    the cache write and the mask stay on the device."""
+    b = tokens.shape[0]
+    h = L.embed(params["emb"], tokens)
+    pos = cache["len"]
+    hd, nh, g = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    for i, blk in enumerate(params["dec"]):
+        h = h + lm._cached_attention(blk, h, cache["k"][i], cache["v"][i],
+                                     cfg=cfg, pos=pos.expand(b), window=0)
+        # cross attention against the cached encoder K/V
+        xq = (L.rmsnorm(h, blk["ln2"], cfg.norm_eps)
+              @ blk["xattn"]["wq"]).reshape(b, 1, nh, hd)
+        xo = L.attention_scores(xq, L._repeat_kv(cache["xk"][i], nh // g),
+                                L._repeat_kv(cache["xv"][i], nh // g),
+                                mask=None, scale=hd ** -0.5)
+        h = h + xo.reshape(b, 1, nh * hd) @ blk["xattn"]["wo"]
+        h = h + _mlp(blk, h, cfg)
+    return lm._head(params, cfg, h, None), dict(cache, len=pos + 1)

@@ -21,7 +21,8 @@ sharding pins (``set_attention_mesh``, ``_shard_heads``,
 ``replicate_model``, ``shard_residual``) annotate tensors for its
 ``gspmd`` mode; the port has no such mode (every routed projection is an
 explicit per-rank op), so they are left out -- they would be the
-identity -- and come with ``parallel/sharding.py`` in the zoo slice.
+identity -- and come with ``parallel/sharding.py`` in the LM-training
+slice.
 """
 
 from __future__ import annotations

@@ -250,10 +250,12 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     return _head(params, cfg, h, mm), dict(cache, len=pos + 1)
 
 
-def _prefill_block(blk: Dict, hh: torch.Tensor, ck, cv, *,
-                   cfg: ModelConfig, positions: torch.Tensor, window: int,
-                   mm=None, dist_mesh=None,
-                   dist_schedule: str = "allgather") -> torch.Tensor:
+def _prefill_attention(blk: Dict, hh: torch.Tensor, ck, cv, *,
+                       cfg: ModelConfig, positions: torch.Tensor,
+                       window: int, mm=None) -> torch.Tensor:
+    """Causal self-attention of a prompt on ``rmsnorm(hh)``, its roped K
+    and V written into the first rows of ``ck`` / ``cv`` [B,Smax,G,hd]
+    in bulk; returns the attention's output projection."""
     b, s = hh.shape[0], hh.shape[1]
     mm = mm if mm is not None else L._dense_mm
     x = L.rmsnorm(hh, blk["ln1"], cfg.norm_eps)
@@ -275,7 +277,15 @@ def _prefill_block(blk: Dict, hh: torch.Tensor, ck, cv, *,
     cv[:, :s] = v
     o = L.attention_core(q, k, v, causal=True, window=window,
                          scale=cfg.head_dim ** -0.5)
-    hh = hh + mm(o.reshape(b, s, -1), blk["attn"]["wo"], "wo")
+    return mm(o.reshape(b, s, -1), blk["attn"]["wo"], "wo")
+
+
+def _prefill_block(blk: Dict, hh: torch.Tensor, ck, cv, *,
+                   cfg: ModelConfig, positions: torch.Tensor, window: int,
+                   mm=None, dist_mesh=None,
+                   dist_schedule: str = "allgather") -> torch.Tensor:
+    hh = hh + _prefill_attention(blk, hh, ck, cv, cfg=cfg,
+                                 positions=positions, window=window, mm=mm)
     m, _ = _ffn(blk, hh, cfg=cfg, mm=mm, dist_mesh=dist_mesh,
                 dist_schedule=dist_schedule)
     return hh + m

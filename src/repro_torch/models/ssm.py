@@ -1,0 +1,350 @@
+"""State-space / recurrent blocks: Mamba2 (SSD), mLSTM, sLSTM -- the port
+of ``repro/models/ssm.py``, its forward.
+
+Mamba2 and mLSTM share the chunked linear-recurrence template
+
+    S_t = exp(lf_t) * S_{t-1} + exp(li_t) * k_t v_t^T
+    y_t = q_t . S_t
+
+computed in the chunkwise-parallel form (intra-chunk masked attention +
+inter-chunk carried state, log-space decays): a Python loop over chunks
+here, the reference's ``lax.scan``.  Decode is the single-step
+recurrence on the carried state, which :func:`linear_recurrence_step`
+updates in place (a cache's own tensor) where the reference returns a new
+array.  sLSTM runs as a loop over time with per-head block-diagonal
+recurrence.  The einsums, gates and states are float32 wherever the
+reference casts, also under bfloat16 weights.
+
+Not here: the reference's two ``jax.custom_vjp`` rules (``_clr_scan``'s
+and ``_slstm_scan``'s backward) serve training; they become
+``torch.autograd.Function``s with the LM-training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _init
+
+# ----------------------------------------------------------- chunked CLR --
+
+
+def _clr_body(S, xs, causal):
+    """One chunk of the linear recurrence.  ``xs`` = (q, k [B,c,H,N],
+    v [B,c,H,P], lf, li [B,c,H] f32); ``S`` [B,H,N,P] f32."""
+    qx, kx, vx, lfx, lix = xs
+    qf, kf, vf = qx.float(), kx.float(), vx.float()
+    L = torch.cumsum(lfx, dim=1)                     # [B,c,H] inclusive
+    Ltot = L[:, -1:, :]                              # [B,1,H]
+    # intra-chunk: scores[i,j] = (q_i.k_j) exp(L_i - L_j + li_j), j<=i
+    qk = torch.einsum("bihn,bjhn->bhij", qf, kf)
+    Lh, lih = L.permute(0, 2, 1), lix.permute(0, 2, 1)          # [B,H,c]
+    decay = Lh[:, :, :, None] - Lh[:, :, None, :] + lih[:, :, None, :]
+    # mask before exp: above the diagonal the decay can overflow, and
+    # inf * 0 after the exp would be NaN
+    scores = qk * torch.exp(torch.where(causal, decay, -torch.inf))
+    scores = torch.where(causal, scores, 0.0)
+    y_intra = torch.einsum("bhij,bjhp->bihp", scores, vf)
+    # inter-chunk: y_i += exp(L_i) q_i . S_prev
+    y_inter = torch.einsum("bihn,bhnp->bihp", qf * torch.exp(L)[..., None],
+                           S)
+    # state update: S = exp(Ltot) S + sum_j exp(Ltot - L_j + li_j) k_j v_j^T
+    w = torch.exp(Ltot - L + lix)                    # [B,c,H]
+    S_new = S * torch.exp(Ltot).permute(0, 2, 1)[..., None]
+    S_new = S_new + torch.einsum("bjhn,bjhp->bhnp", kf * w[..., None], vf)
+    return S_new, y_intra + y_inter
+
+
+def chunked_linear_recurrence(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, lf: torch.Tensor,
+                              li: torch.Tensor, *, chunk: int,
+                              state0: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q,k: [B,S,H,N]; v: [B,S,H,P]; lf,li: [B,S,H] (log gates, lf<=0).
+
+    Returns (y [B,S,H,P] in v's dtype, final_state [B,H,N,P] f32).
+    ``state0`` is read, never written."""
+    b, s, h, n = q.shape
+    p = v.shape[-1]
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).tril()
+    lf, li = lf.float(), li.float()
+    S = (torch.zeros((b, h, n, p), dtype=torch.float32, device=q.device)
+         if state0 is None else state0.float())
+    ys = []
+    for c0 in range(0, s, chunk):
+        c = slice(c0, c0 + chunk)
+        S, y = _clr_body(S, (q[:, c], k[:, c], v[:, c], lf[:, c], li[:, c]),
+                         causal)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(v.dtype), S
+
+
+def linear_recurrence_step(q, k, v, lf, li, state):
+    """One decode step.  q,k: [B,H,N]; v: [B,H,P]; lf,li: [B,H];
+    state: [B,H,N,P].  Returns (y [B,H,P] in v's dtype, new_state).
+
+    A contiguous float32 ``state`` is updated in place and returned (two
+    passes over it, and one more to read ``y``); any other is first
+    copied to float32, as the reference casts."""
+    b, h, n = k.shape
+    p = v.shape[-1]
+    if state.dtype != torch.float32 or not state.is_contiguous():
+        state = state.float().contiguous()
+    f = torch.exp(lf.float())[..., None, None]
+    i = torch.exp(li.float())[..., None]
+    state.mul_(f)
+    state.view(b * h, n, p).baddbmm_(
+        (k.float() * i).reshape(b * h, n, 1),
+        v.float().reshape(b * h, 1, p))
+    y = torch.matmul(q.float()[..., None, :], state)[..., 0, :]
+    return y.to(v.dtype), state
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA evaluates it, ``x * (1 / (1 + exp(-x)))``
+    with every step rounded to ``x``'s dtype: in bfloat16 it equals the
+    reference's to the bit, where ``F.silu`` rounds once (a 2^-8 step
+    apart on a third of the inputs, which six Mamba2 layers amplify to
+    8e-2 of max|logit| against the reference)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    yf = y.float() * _silu(z.float())
+    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(var + eps) * (1.0 + w.float())
+    return yf.to(y.dtype)
+
+
+def write_back(stack: Dict, i: int, st_in: Dict, st_out: Dict) -> None:
+    """Store layer ``i``'s new states in the stacked ``stack``: every
+    state a block returned as a new tensor is copied in; one it updated
+    in place (the decode step's SSD state) is already there."""
+    for key, new in st_out.items():
+        if new is not st_in[key]:
+            stack[key][i].copy_(new)
+
+
+# --------------------------------------------------------------- Mamba2 ---
+
+def init_mamba2(generator, d_model: int, *, expand: int, state: int,
+                head_dim: int, dtype=torch.bfloat16, device=None) -> Dict:
+    di = expand * d_model
+    nh = di // head_dim
+    kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "w_z": _init(generator, (d_model, di), **kw),
+        "w_x": _init(generator, (d_model, di), **kw),
+        "w_B": _init(generator, (d_model, state), **kw),
+        "w_C": _init(generator, (d_model, state), **kw),
+        "w_dt": _init(generator, (d_model, nh), **kw),
+        "out_proj": _init(generator, (di, d_model), **kw),
+        "conv_x": _init(generator, (4, di), scale=0.5, **kw),
+        "conv_B": _init(generator, (4, state), scale=0.5, **kw),
+        "conv_C": _init(generator, (4, state), scale=0.5, **kw),
+        "A_log": torch.zeros((nh,), **f32),
+        "D": torch.ones((nh,), **f32),
+        "dt_bias": torch.zeros((nh,), **f32),
+        "norm_w": torch.zeros((di,), **kw),
+    }
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                   state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv, width K.  x: [B,S,C]; w: [K,C].
+    state: [B,K-1,C] trailing context.  Returns (y, new_state)."""
+    kk = w.shape[0]
+    pad = (torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
+                       device=x.device)
+           if state is None else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
+            for i in range(kk))
+    return _silu(y), xp[:, -(kk - 1):, :]
+
+
+def mamba2_block(params: Dict, x: torch.Tensor, *, expand: int, state: int,
+                 head_dim: int, chunk: int,
+                 ssm_state: Optional[Dict] = None,
+                 decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: [B,S,d].  In decode mode S==1 and ``ssm_state`` carries
+    {"conv_x","conv_B","conv_C" (trailing contexts), "ssd": [B,H,N,P]};
+    its "ssd" is updated in place (:func:`linear_recurrence_step`)."""
+    b, s, d = x.shape
+    di = expand * d
+    nh = di // head_dim
+    z = x @ params["w_z"]
+    xb = x @ params["w_x"]
+    B = x @ params["w_B"]
+    C = x @ params["w_C"]
+    dt = x @ params["w_dt"]
+
+    st = ssm_state or {}
+    xb, ncx = _causal_conv1d(xb, params["conv_x"], st.get("conv_x"))
+    B, ncb = _causal_conv1d(B, params["conv_B"], st.get("conv_B"))
+    C, ncc = _causal_conv1d(C, params["conv_C"], st.get("conv_C"))
+
+    dt = F.softplus(dt.float() + params["dt_bias"])              # [B,S,H]
+    A = -torch.exp(params["A_log"])                              # [H]
+    lf = dt * A                                                  # log forget
+    li = torch.log(dt + 1e-9)                                    # log input
+
+    v = xb.reshape(b, s, nh, head_dim)
+    # B and C are shared by every head: broadcast views, never copies
+    qh = C[:, :, None, :].expand(b, s, nh, state)
+    kh = B[:, :, None, :].expand(b, s, nh, state)
+
+    if decode:
+        y, S = linear_recurrence_step(
+            qh[:, 0], kh[:, 0], v[:, 0], lf[:, 0], li[:, 0], st["ssd"])
+        y = y[:, None]
+    else:
+        y, S = chunked_linear_recurrence(qh, kh, v, lf, li, chunk=chunk,
+                                         state0=st.get("ssd"))
+    y = (y + v * params["D"][None, None, :, None]).to(x.dtype)
+    y = y.reshape(b, s, di)
+    out = _gated_rmsnorm(y, z, params["norm_w"]) @ params["out_proj"]
+    new_state = ({"conv_x": ncx, "conv_B": ncb, "conv_C": ncc, "ssd": S}
+                 if (decode or ssm_state is not None) else None)
+    return out, new_state
+
+
+# ---------------------------------------------------------------- mLSTM ---
+
+def init_mlstm(generator, d_model: int, *, expand: int, n_heads: int,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    di = expand * d_model
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w_x": _init(generator, (d_model, di), **kw),
+        "w_z": _init(generator, (d_model, di), **kw),
+        "wq": _init(generator, (di, di), **kw),
+        "wk": _init(generator, (di, di), **kw),
+        "wv": _init(generator, (di, di), **kw),
+        "gates": _init(generator, (di, 2 * n_heads), scale=0.02,
+                       dtype=torch.float32, device=device),
+        "out_proj": _init(generator, (di, d_model), **kw),
+        "norm_w": torch.zeros((di,), **kw),
+    }
+
+
+def mlstm_block(params: Dict, x: torch.Tensor, *, expand: int, n_heads: int,
+                chunk: int, ssm_state: Optional[Dict] = None,
+                decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: [B,S,d]; state {"ssd": [B,H,hd,hd+1]} (updated in place in
+    decode mode)."""
+    b, s, d = x.shape
+    di = expand * d
+    hd = di // n_heads
+    xi = x @ params["w_x"]
+    z = x @ params["w_z"]
+    q = (xi @ params["wq"]).reshape(b, s, n_heads, hd)
+    k = (xi @ params["wk"]).reshape(b, s, n_heads, hd) * hd ** -0.5
+    v = (xi @ params["wv"]).reshape(b, s, n_heads, hd)
+    gates = xi.float() @ params["gates"]                           # [B,S,2H]
+    lf = F.logsigmoid(gates[..., :n_heads])                        # forget
+    li = F.logsigmoid(gates[..., n_heads:])                        # input
+
+    # normalizer trick: append a ones column to v
+    v_ext = torch.cat([v, torch.ones((*v.shape[:-1], 1), dtype=v.dtype,
+                                     device=v.device)], dim=-1)
+    st = ssm_state or {}
+    if decode:
+        y_ext, S = linear_recurrence_step(q[:, 0], k[:, 0], v_ext[:, 0],
+                                          lf[:, 0], li[:, 0], st["ssd"])
+        y_ext = y_ext[:, None]
+    else:
+        y_ext, S = chunked_linear_recurrence(q, k, v_ext, lf, li,
+                                             chunk=chunk,
+                                             state0=st.get("ssd"))
+    y, nrm = y_ext[..., :hd], y_ext[..., hd:]
+    y = y / torch.clamp(torch.abs(nrm), min=1.0)
+    y = y.reshape(b, s, di)
+    out = _gated_rmsnorm(y, z, params["norm_w"]) @ params["out_proj"]
+    new_state = ({"ssd": S} if (decode or ssm_state is not None) else None)
+    return out, new_state
+
+
+# ---------------------------------------------------------------- sLSTM ---
+
+def _slstm_gates(gates, c, n):
+    """Pointwise sLSTM cell given pre-activations.  gates: [B,H,4*hd]."""
+    zi, ii, fi, oi = torch.chunk(gates, 4, dim=-1)
+    zt = torch.tanh(zi)
+    it = torch.exp(torch.clamp(ii, max=10.0))
+    ft = torch.sigmoid(fi)
+    ot = torch.sigmoid(oi)
+    c2 = ft * c + it * zt
+    n2 = ft * n + it
+    h2 = ot * c2 / torch.clamp(torch.abs(n2), min=1.0)
+    return c2, n2, h2
+
+
+def _slstm_scan(pre, r, bias, carry0):
+    """The reference's ``_slstm_scan`` forward, a loop over time.
+    pre: [B,S,H,4hd] f32; r: [H,hd,4hd] f32; bias: [H,4hd] f32;
+    carry0: (c,n,h) each [B,H,hd] f32.  Returns (hs [B,S,H,hd], carry)."""
+    c, n, h = carry0
+    hs = []
+    for t in range(pre.shape[1]):
+        gates = pre[:, t] + torch.einsum("bhd,hdk->bhk", h, r) + bias
+        c, n, h = _slstm_gates(gates, c, n)
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, h)
+
+
+def init_slstm(generator, d_model: int, *, n_heads: int,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    hd = d_model // n_heads
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w_in": _init(generator, (d_model, 4 * d_model), **kw),
+        "r": _init(generator, (n_heads, hd, 4 * hd), **kw),
+        "bias": torch.zeros((4 * d_model,), dtype=torch.float32,
+                            device=device),
+        "out_proj": _init(generator, (d_model, d_model), **kw),
+    }
+
+
+def slstm_block(params: Dict, x: torch.Tensor, *, n_heads: int,
+                ssm_state: Optional[Dict] = None,
+                decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Sequential sLSTM with per-head block-diagonal recurrence.
+
+    state: {"c","n","h"} each [B, H, hd] (read; the new state is new
+    tensors)."""
+    b, s, d = x.shape
+    hd = d // n_heads
+    pre = (x @ params["w_in"]).float().reshape(b, s, n_heads, 4 * hd)
+    r = params["r"].float()
+    bias = params["bias"].reshape(n_heads, 4 * hd)
+
+    if ssm_state is None:
+        zeros = torch.zeros((b, n_heads, hd), dtype=torch.float32,
+                            device=x.device)
+        carry = (zeros, zeros, zeros)
+    else:
+        carry = (ssm_state["c"], ssm_state["n"], ssm_state["h"])
+
+    if decode:
+        c, n, h = carry
+        gates = pre[:, 0] + torch.einsum("bhd,hdk->bhk", h, r) + bias
+        carry = _slstm_gates(gates, c, n)
+        ys = carry[2][:, None]
+    else:
+        ys, carry = _slstm_scan(pre, r, bias, carry)
+    y = ys.reshape(b, s if not decode else 1, d).to(x.dtype)
+    out = y @ params["out_proj"]
+    c, n, h = carry
+    new_state = ({"c": c, "n": n, "h": h}
+                 if (decode or ssm_state is not None) else None)
+    return out, new_state

@@ -425,6 +425,12 @@ def test_model_fns_families():
     assert cache["k"].shape == (2, 3, 16, 2, 16)
     with pytest.raises(NotImplementedError, match="LM-training"):
         fns.loss({}, None, {})
-    for arch in ("xlstm-350m", "zamba2-7b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="zoo slice"):
-            model_fns(get_config(arch, smoke=True))
+    # the zoo's families resolve to their own modules; every loss waits
+    # for LM training (chunked_cross_entropy)
+    for arch, module in (("xlstm-350m", "ssm_lm"), ("zamba2-7b", "hybrid"),
+                         ("whisper-tiny", "encdec")):
+        zoo = model_fns(get_config(arch, smoke=True))
+        assert zoo.prefill.__module__ == f"repro_torch.models.{module}"
+        assert zoo.decode_step.__module__ == zoo.prefill.__module__
+        with pytest.raises(NotImplementedError, match="LM-training"):
+            zoo.loss({}, None, {})

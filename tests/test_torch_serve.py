@@ -363,17 +363,23 @@ def test_engine_eos_frees_slot():
     assert eng.active[0] is None and eng.retired == [req]
 
 
-def test_engine_refusals():
+def test_engine_refusals(capsys):
     with pytest.raises(ValueError, match="static Engine"):
         tserve.ContinuousEngine(get_config("xlstm-350m", smoke=True), {},
                                 slots=2, max_seq=16)
     # the fault knobs are taken since the fault runtime was ported (their
-    # behaviour: tests/test_torch_fault.py); the zoo's families still raise
+    # behaviour: tests/test_torch_fault.py)
     for knob in ("decode_watchdog_timeout_s", "state_dump_path",
                  "fault_log", "injector"):
         assert getattr(_engine(**{knob: 1.0}), knob) == 1.0
-    with pytest.raises(NotImplementedError, match="zoo slice"):
-        tserve.main(["--arch", "whisper-tiny", "--device", "cpu"])
+    # the zoo's families serve through the static Engine, as the
+    # reference's CLI serves them
+    toks = tserve.main(["--arch", "whisper-tiny", "--smoke", "--device",
+                        "cpu", "--requests", "2", "--prompt-len", "8",
+                        "--gen", "4"])
+    assert toks.shape == (2, 4)
+    assert "[serve] whisper-tiny (bfloat16) on cpu: prefill" in \
+        capsys.readouterr().out
 
 
 def test_engine_backpressure_and_deadline_statuses():
