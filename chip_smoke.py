@@ -179,7 +179,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``decode_step_encdec`` with 1500 encoder frames and a 4-token prompt;
    xlstm-350m and whisper-tiny then served in bf16 like zamba2-7b; the
    three smoke configs' greedy tokens on the card equal to the CPU's in
-   f32.
+   f32;
+11. LM training (``lm_train``), the tuner off: (a) llama3.2-1b at its
+   published widths and full depth in f32 (random weights drawn on the
+   card), batch 8 x 64 from the ported ``data.pipeline.SyntheticTokens``,
+   ``LM_TRAIN_STEPS`` AdamW steps of ``loss_lm`` on the one-rank
+   (1,1,1) grid (every projection through the GEMM, forward, recomputed
+   under ``remat`` and backward; the head ``torch.matmul``) and the same
+   steps dense (``torch.matmul``, TF32 off) from the same weights: each
+   step's loss within ``LOSS_RTOL``, the step-1 gradients per tensor
+   within ``GRAD_RTOL`` of max|g|, the GEMM's launches in every grid step
+   (and in the gradient pass, and a profiled step) equal to the count the
+   code gives (``lm_train_products``: 448) and no other kernel launched,
+   none dense; step p50 and tokens/s, device-busy ms and the top kernels
+   of one profiled step, the GEMM's share and that of the copies inside
+   its backward (the operand transposes), both read from that step's
+   trace, the same two timed alone beside them as microbenchmarks, peak
+   allocated bytes; (b) the GEMM against its plain version and
+   ``torch.matmul`` at each distinct product of that step (forward, dX,
+   dW of the four projection shapes), with the FFMA bound and the sums
+   over a step; (c) the flash-attention ``autograd.Function`` at llama's
+   heads (32 q, 8 kv, head_dim 64), batch 1, S = 4096, f32: output, dq,
+   dk, dv against autograd through the plain ``attention_scores`` path
+   within ``KERNEL_RTOL``, both timed; (d) every family's smoke config
+   (llama, granite-moe, qwen2-vl, xlstm-350m at 8 tokens, zamba2-7b,
+   whisper-tiny) in f32, the loss and gradients on the card against the
+   CPU within ``LOSS_RTOL`` / ``GRAD_RTOL``; (e) ``python -m
+   repro_torch.launch.train --mesh host --arch llama3.2-1b --steps 4
+   --batch 8 --seq 64`` in a subprocess (full width, its own bf16,
+   dense), run beside (d): exit 0 and four finite losses.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -271,6 +299,11 @@ WHISPER_FRAMES, WHISPER_PROMPT = 1500, 4   # 30 s of audio at 50 frames/s
 # embedding moves its logits at 32 prompt tokens by O(1), printed beside):
 # card against CPU at 2 prompt tokens + 4 steps
 XLSTM_TF_PROMPT = 2
+# phase 11: LM training, llama3.2-1b at full width and depth in float32
+LM_TRAIN_ARCH = "llama3.2-1b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 64, 3
+LM_TRAIN_LR = 1e-3
+FLASH_SEQ = 4096   # above the flash threshold: S * S > 2048 ** 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -840,9 +873,10 @@ def _slice_rank(rank):
             "dense_launches": dense_launches, "profile": profile}
 
 
-def _profile(run, count: int, label: str):
+def _profile(run, count: int, label: str, extra=None):
     """Device time by kernel over ``count`` calls of ``run()``, and the
-    share of the wall time the device was busy (``torch.profiler``)."""
+    share of the wall time the device was busy (``torch.profiler``);
+    ``extra(prof, events)`` adds keys read from the same trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -862,9 +896,12 @@ def _profile(run, count: int, label: str):
     busy_ms = sum(ms for _, ms in events)
     check(busy_ms > 0, "the profiler saw no device time")
     top = sorted(events, key=lambda e: -e[1])[:8]
-    return {label: count, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-            "top_device_ms": [[k[:60], ms] for k, ms in top]}
+    out = {label: count, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+           "top_device_ms": [[k[:60], ms] for k, ms in top]}
+    if extra is not None:
+        out.update(extra(prof, events))
+    return out
 
 
 def slice_phase():
@@ -2499,6 +2536,423 @@ def zoo_phase(card):
                       "whisper-tiny": whisper}
 
 
+# --------------------------------------------------------------------------
+# Phase 11: LM training -- every family's loss, the flash and recurrence
+# backward passes, llama3.2-1b trained on the (1,1,1) grid
+# --------------------------------------------------------------------------
+
+def _lm_batch(cfg, batch, seq, device, seed=SEED):
+    """Step 0 of the ported synthetic pipeline, on ``device``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, \
+        to_torch
+    return to_torch(SyntheticTokens(DataConfig(
+        global_batch=batch, seq_len=seq, vocab=cfg.vocab, seed=seed,
+        frames=cfg.family == "encdec", d_model=cfg.d_model,
+        positions3d=cfg.family == "vlm")).batch_at(0), device)
+
+
+def _lm_value_and_grads(cfg, params, batch, mesh=None):
+    """(loss, gradients as a flat list) of ``cfg``'s family loss."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models.api import model_fns
+    from repro_torch.train.step import _value_and_grad
+
+    kw = {} if mesh is None else {"dist_mesh": mesh}
+    loss, grads = _value_and_grad(
+        lambda p, b: model_fns(cfg).loss(p, cfg, b, **kw), params, batch)
+    return float(loss), pytree.tree_leaves(grads)
+
+
+def _grad_rel(got, want) -> float:
+    """The worst per-tensor max|g - g'| / max|g'|."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def lm_train_products(cfg, rows: int):
+    """``(M, C, N)`` of every local product one grid train step runs on
+    the ``(1,1,1)`` grid, as the code gives them: each projection of each
+    layer forward, again under ``cfg.remat`` (the backward recomputes the
+    block), and its dX ``g @ W^T`` and dW ``X^T @ g``; the vocabulary
+    head is ``torch.matmul`` and launches no GEMM."""
+    from repro_torch.dist.lm import lm_decode_matmuls
+
+    out = []
+    for name, m, c, n in lm_decode_matmuls(cfg, rows):
+        if name == "lm_head":
+            continue
+        out += [(m, c, n)] * (2 if cfg.remat else 1) + [(m, n, c), (c, m, n)]
+    return out * cfg.n_layers
+
+
+def _lm_train_steps(cfg, params, batch, mesh, steps):
+    """``steps`` AdamW steps of ``make_train_step`` from ``params``
+    (``mode="dist-grid"`` on the grid with ``mesh``, else ``"gspmd"``,
+    dense): per step the loss, the host ms to the synchronised end and
+    every kernel's launches; the state and the step function."""
+    from repro_torch.models.lm import loss_lm
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    opt = AdamW(lr=LM_TRAIN_LR)
+    step = make_train_step(
+        lambda p, b: loss_lm(p, cfg, b, dist_mesh=mesh), opt,
+        mode="gspmd" if mesh is None else "dist-grid")
+    state = init_train_state(params, opt)
+    out = []
+    for _ in range(steps):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        out.append((loss, (time.perf_counter() - t0) * 1e3,
+                    _launch_counts()))
+    return state, step, out
+
+
+# the autograd nodes of the GEMM's backward: the grid's and the local one
+GEMM_BACKWARD_NODES = ("_MatmulDistributedBackward", "_MatmulKernelBackward")
+
+
+def _lm_step_trace(prof, events):
+    """Read from one profiled grid train step: the GEMM's kernels
+    (``tile_gemm`` and its split-K ``sum_splits``) over the whole trace,
+    and the copies made inside the GEMM's backward (the operand
+    transposes ``w.t().contiguous()``, ``x.t().contiguous()``, and
+    ``g.contiguous()`` where the cotangent is strided), found by their
+    place in the op tree."""
+    from torch.autograd import DeviceType
+
+    copies_us = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, node = [], e
+        while node is not None:
+            chain.append(node.name)
+            node = node.cpu_parent
+        if (any(n in GEMM_BACKWARD_NODES for n in chain)
+                and any(n in ("aten::contiguous", "aten::clone",
+                              "aten::copy_") for n in chain)):
+            copies_us += sum(k.duration for k in e.kernels)
+    return {"gemm_device_ms": sum(ms for key, ms in events
+                                  if "tile_gemm" in key
+                                  or "sum_splits" in key),
+            "gemm_backward_copy_device_ms": copies_us / 1e3}
+
+
+def _lm_train_rank(rank):
+    """Phase 11 (a): llama3.2-1b at full width and depth in float32,
+    trained ``LM_TRAIN_STEPS`` steps on the one-rank (1,1,1) grid (the
+    static plan) and dense from the same weights; step-1 gradients of
+    both; one more grid step profiled; the transposes of the backward
+    also timed alone, as a microbenchmark beside the trace's."""
+    from repro_torch.dist.lm import lm_decode_matmuls
+    from repro_torch.dist.matmul import make_matmul_mesh
+    from repro_torch.kernels.autotune import autotune_disabled
+    from repro_torch.models.lm import init_lm
+
+    device = torch.device("cuda")
+    cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32")
+    mesh = make_matmul_mesh((1, 1, 1), device=device)
+    params = init_lm(torch.Generator(device=device).manual_seed(SEED), cfg,
+                     device=device)
+    batch = _lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, device)
+    out = {"params": sum(p.numel() for p in _leaves(params))}
+    with autotune_disabled():   # the static paper plan: the GEMM
+        _zero_counts()
+        loss_g, grads_g = _lm_value_and_grads(cfg, params, batch, mesh)
+        out["grad_pass_launches"] = _launch_counts()
+        loss_d, grads_d = _lm_value_and_grads(cfg, params, batch)
+        out["step1_loss"] = {"grid": loss_g, "dense": loss_d}
+        out["step1_grad_rel_err"] = _grad_rel(grads_g, grads_d)
+        out["grad_tensors"] = len(grads_g)
+        del grads_g, grads_d
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step, grid = _lm_train_steps(cfg, params, batch, mesh,
+                                            LM_TRAIN_STEPS)
+        out["grid_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        _zero_counts()
+        out["profile"] = _profile(lambda: step(state, batch), 1,
+                                  "train_steps", extra=_lm_step_trace)
+        out["profiled_launches"] = _launch_counts()
+        del state, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, dense = _lm_train_steps(cfg, params, batch, None,
+                                      LM_TRAIN_STEPS)
+        out["dense_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out["grid"], out["dense"] = grid, dense
+    # microbenchmark: the backward's operand transposes
+    # (``w.t().contiguous()``, ``x.t().contiguous()``) on random tensors,
+    # each timed alone on the device
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    rows = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    transpose_ms = 0.0
+    for name, m, c, n in lm_decode_matmuls(cfg, rows):
+        if name == "lm_head":
+            continue
+        w = torch.randn(c, n, generator=gen, device=device)
+        x = torch.randn(m, c, generator=gen, device=device)
+        transpose_ms += cfg.n_layers * (
+            device_ms(lambda: w.t().contiguous())
+            + device_ms(lambda: x.t().contiguous()))
+        del w, x
+    out["transposes_alone_device_ms"] = transpose_ms
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_train_kernel_rows(cfg, device):
+    """Phase 11 (b): the GEMM against its plain version and
+    ``torch.matmul`` at every distinct product of a grid train step
+    (forward, dX, dW of each projection), each named with its count per
+    step; and their sums over one step."""
+    from collections import Counter
+
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    counts = Counter(lm_train_products(cfg, LM_TRAIN_BATCH * LM_TRAIN_SEQ))
+    rows, step = [], dict.fromkeys(("kernel_ms", "kernel_device_ms",
+                                    "plain_ms", "library_ms",
+                                    "library_device_ms", "bound_ms"), 0.0)
+    for (m, c, n), count in sorted(counts.items()):
+        x = torch.randn(m, c, generator=gen, device=device)
+        w = torch.randn(c, n, generator=gen, device=device)
+        row = gemm_row(f"train_lm {LM_TRAIN_ARCH} float32 x{count} "
+                       f"[{m},{c}]@[{c},{n}]", matmul, matmul_plain,
+                       torch.matmul, x, w,
+                       extra={"route": "tile", "count": count,
+                              "path": "train_lm"})
+        rows.append(row)
+        for key in step:
+            step[key] += count * row[key]
+        del x, w
+    step["bound_share"] = step["bound_ms"] / step["kernel_ms"]
+    step["launches"] = sum(counts.values())
+    return rows, step
+
+
+def _flash_on_card(device):
+    """Phase 11 (c): the flash ``autograd.Function`` at llama's heads,
+    batch 1, S = FLASH_SEQ, float32, against autograd through the plain
+    ``attention_scores`` path (k, v expanded, the [S,S] logits
+    materialised): output and dq, dk, dv; both timed forward + backward."""
+    from repro_torch.models import layers as L
+
+    cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32")
+    s, hd = FLASH_SEQ, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    q, g = rand(1, s, cfg.n_heads, hd), rand(1, s, cfg.n_heads, hd)
+    k, v = rand(1, s, cfg.n_kv_heads, hd), rand(1, s, cfg.n_kv_heads, hd)
+    scale = hd ** -0.5
+    rep = cfg.n_heads // cfg.n_kv_heads
+
+    def flash(q, k, v):
+        return L.flash_attention(q, k, v, 0, True, scale, 512, 1024)
+
+    def plain(q, k, v):
+        return L.attention_scores(
+            q, L._repeat_kv(k, rep), L._repeat_kv(v, rep),
+            mask=L.make_mask(s, s, causal=True, device=device), scale=scale)
+
+    def fwd_bwd(fn):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ins)
+        return [out.detach()] + list(torch.autograd.grad(out, ins, g))
+
+    got, want = fwd_bwd(flash), fwd_bwd(plain)
+    errs = {name: float((a - b).abs().max()) / float(b.abs().max())
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    del got, want
+    out = {"seq": s, "heads": [cfg.n_heads, cfg.n_kv_heads, hd],
+           "rel_err": errs,
+           "flash_fwd_bwd_ms": time_ms(lambda: fwd_bwd(flash), iters=3,
+                                       warmup=1, repeats=3),
+           "plain_fwd_bwd_ms": time_ms(lambda: fwd_bwd(plain), iters=3,
+                                       warmup=1, repeats=3)}
+    torch.cuda.empty_cache()
+    return out
+
+
+LM_CARD_VS_CPU = (("llama3.2-1b", 16), ("granite-moe-1b-a400m", 16),
+                  ("qwen2-vl-72b", 16), ("xlstm-350m", 8),
+                  ("zamba2-7b", 32), ("whisper-tiny", 16))
+
+
+def _lm_card_vs_cpu(device):
+    """Phase 11 (d): every family's smoke config in float32, the loss and
+    gradients on the card against the CPU (plain versions), the same
+    CPU-generator weights and batch (xlstm-350m at 8 tokens: its random
+    sLSTM is chaotic)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import model_fns
+
+    out = {}
+    for arch, seq in LM_CARD_VS_CPU:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        params = model_fns(cfg).init(torch.Generator().manual_seed(SEED),
+                                     cfg, device="cpu")
+        batch = _lm_batch(cfg, 2, seq, "cpu")
+        loss_c, grads_c = _lm_value_and_grads(cfg, params, batch)
+        loss_g, grads_g = _lm_value_and_grads(
+            cfg, _to(params, device), {k: v.to(device)
+                                       for k, v in batch.items()})
+        out[arch] = {"seq": seq, "loss_rel_err": abs(loss_g - loss_c)
+                     / abs(loss_c),
+                     "grad_rel_err": _grad_rel([g.cpu() for g in grads_g],
+                                               grads_c),
+                     "finite": bool(np.isfinite(loss_g))}
+    return out
+
+
+def _lm_cli_start():
+    """Phase 11 (e): ``launch.train --mesh host`` on the card in a
+    subprocess, started here and read by :func:`_lm_cli_finish`:
+    llama3.2-1b at full width in its own dtype (bfloat16), dense, its
+    output to a file."""
+    args = ["--mesh", "host", "--arch", LM_TRAIN_ARCH, "--steps", "4",
+            "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+            "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "repro_torch.launch.train", *args],
+                            stdout=out, stderr=subprocess.STDOUT, text=True,
+                            env=env)
+    return proc, out, args, time.perf_counter()
+
+
+def _lm_cli_finish(started):
+    """Wait for the CLI run; its exit, wall time and per-step losses."""
+    proc, out, args, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    out.seek(0)
+    text = out.read()
+    out.close()
+    check(rc == 0, f"launch.train --mesh host exited {rc}:\n"
+          f"{text[-3000:]}")
+    losses = [float(x) for x in re.findall(r"^step +\d+ loss (\S+)", text,
+                                           re.M)]
+    return {"args": " ".join(args), "wall_s": wall, "losses": losses}
+
+
+def lm_train_phase(card):
+    """Phase 11 (see the module docstring).  Returns each kernel's
+    launches over the grid's timed train steps, the training-product rows
+    and their sums over one step."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    from repro_torch.dist.spawn import run_spmd
+
+    r = run_spmd(_lm_train_rank, 1)[0]
+    cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32")
+    rows_per_step = len(lm_train_products(cfg, LM_TRAIN_BATCH
+                                          * LM_TRAIN_SEQ))
+    # the CLI's start-up and weights take ~20 s of mostly host time: it
+    # runs beside the CPU-bound comparisons, before anything is timed
+    cli = _lm_cli_start()
+    try:
+        card_cpu = _lm_card_vs_cpu(device)
+    finally:
+        cli = _lm_cli_finish(cli)
+    flash = _flash_on_card(device)
+    kernel_rows, kernel_step = _lm_train_kernel_rows(cfg, device)
+    phase_s = time.perf_counter() - t_phase
+    grid, dense = r["grid"], r["dense"]
+    p50 = statistics.median(s[1] for s in grid)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    prof = r["profile"]
+    busy = prof["device_busy_ms"]
+    print(json.dumps({
+        "phase": "lm_train", "card": card, "arch": LM_TRAIN_ARCH,
+        "dtype": "float32", "grid": [1, 1, 1], "plan": "static",
+        "params": r["params"], "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+        "remat": cfg.remat, "lr": LM_TRAIN_LR,
+        "grid_losses": [s[0] for s in grid],
+        "dense_losses": [s[0] for s in dense],
+        "grid_step_ms": [s[1] for s in grid],
+        "dense_step_ms": [s[1] for s in dense],
+        "grid_p50_step_ms": p50,
+        "dense_p50_step_ms": statistics.median(s[1] for s in dense),
+        "tokens_per_s": tokens / p50 * 1e3,
+        "launches_per_step": [s[2] for s in grid],
+        "gemm_launches_derived": rows_per_step,
+        "dense_launches_per_step": [s[2] for s in dense],
+        "step1_loss": r["step1_loss"],
+        "step1_grad_rel_err": r["step1_grad_rel_err"],
+        "grad_tensors": r["grad_tensors"],
+        "device_busy_ms_per_step": busy,
+        "profiled_step_wall_ms": prof["wall_ms"],
+        "top_device_ms": prof["top_device_ms"],
+        "trace_gemm_device_ms": prof["gemm_device_ms"],
+        "trace_gemm_share_of_device_busy": prof["gemm_device_ms"] / busy,
+        "trace_gemm_backward_copy_device_ms":
+            prof["gemm_backward_copy_device_ms"],
+        "trace_gemm_backward_copy_share_of_device_busy":
+            prof["gemm_backward_copy_device_ms"] / busy,
+        "microbenchmark_gemm_rows_device_ms": kernel_step["kernel_device_ms"],
+        "microbenchmark_transposes_alone_device_ms":
+            r["transposes_alone_device_ms"],
+        "gemm_step_sums": kernel_step,
+        "grid_peak_allocated_bytes": r["grid_peak_allocated_bytes"],
+        "dense_peak_allocated_bytes": r["dense_peak_allocated_bytes"],
+        "flash_backward": flash, "card_vs_cpu": card_cpu, "cli": cli, "phase_s": phase_s}),
+        flush=True)
+    for i, ((lg, _, _), (ld, _, _)) in enumerate(zip(grid, dense)):
+        check(abs(lg - ld) <= LOSS_RTOL * abs(ld),
+              f"llama train step {i + 1}: grid loss {lg} vs dense {ld}")
+    check(r["step1_grad_rel_err"] <= GRAD_RTOL,
+          f"llama step-1 gradients, grid vs dense: "
+          f"{r['step1_grad_rel_err']:.3e} > {GRAD_RTOL}")
+    # every grid pass launches the tile GEMM as often as the code gives
+    # and no other kernel; the dense steps launch none
+    want = dict(dict.fromkeys(r["grad_pass_launches"], 0),
+                matmul=rows_per_step)
+    for name, launches in [("grad pass", r["grad_pass_launches"]),
+                           ("profiled step", r["profiled_launches"])] + [
+            (f"grid step {i + 1}", s[2]) for i, s in enumerate(grid)]:
+        check(launches == want, f"llama train, {name}: launches "
+              f"{launches}, the code gives {want}")
+    check(all(not any(s[2].values()) for s in dense),
+          f"the dense steps launched a kernel: {[s[2] for s in dense]}")
+    check(prof["gemm_device_ms"] > 0,
+          "the profiled grid step shows no tile GEMM on the device")
+    for name, err in flash["rel_err"].items():
+        check(err <= KERNEL_RTOL, f"flash attention at S = {FLASH_SEQ}: "
+              f"{name} {err:.3e} > {KERNEL_RTOL}")
+    for arch, e in card_cpu.items():
+        check(e["finite"] and e["loss_rel_err"] <= LOSS_RTOL
+              and e["grad_rel_err"] <= GRAD_RTOL,
+              f"{arch} smoke loss, card vs CPU: {e}")
+    check(len(cli["losses"]) == 4 and all(np.isfinite(cli["losses"])),
+          f"launch.train --mesh host losses {cli['losses']}")
+    return ({name: sum(s[2][name] for s in grid) for name in want},
+            kernel_rows, kernel_step)
+
+
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
                  launches, by_path):
     """One kernel's line: errors over every shape checked, times summed
@@ -2600,6 +3054,8 @@ def main() -> int:
     perf = perf_phase(card, dict(rows, skinny=serve_rows["skinny"]),
                       static, resilient_ms, serve_stats)
     zoo, _ = zoo_phase(card)
+    train_lm, train_lm_rows, train_lm_step = lm_train_phase(card)
+    rows["matmul"] += train_lm_rows
 
     def by_path(name):
         counts = {"infer": infer.get(name, 0),
@@ -2607,7 +3063,8 @@ def main() -> int:
                      for m in MODES + (SG_MODE,)},
                   "train_resilient": resilient[name],
                   "warm": warm[name], "perf": perf[name],
-                  "zoo": zoo[name]}
+                  "zoo": zoo[name],
+                  "train_lm": train_lm[name]}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts
 
@@ -2624,7 +3081,9 @@ def main() -> int:
                           "src/repro/kernels/matmul.py:43", "matmul_pallas",
                           rows["matmul"], path["matmul"],
                           train["static"]["matmul"], tile),
-             serve_rows=[r["shape"] for r in serve_rows["tile"]]),
+             serve_rows=[r["shape"] for r in serve_rows["tile"]],
+             train_lm_rows=[r["shape"] for r in train_lm_rows],
+             train_lm_step=train_lm_step),
         skinny_entry(serve_rows["skinny"], serve_step,
                      serve["skinny_gemm"]["serve_bf16"], skinny),
         kernel_entry("wino_gemm",

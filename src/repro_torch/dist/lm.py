@@ -1,6 +1,6 @@
-"""LM serving on the ``(Pm, Pn, Pc)`` matmul grid -- the port of
-``repro/dist/lm.py``: the paper's 2D-SUMMA / 2.5D / 3D family routed
-under transformer inference.
+"""LM serving and training on the ``(Pm, Pn, Pc)`` matmul grid -- the port
+of ``repro/dist/lm.py``: the paper's 2D-SUMMA / 2.5D / 3D family routed
+under a transformer.
 
 A decoder-only transformer step is a chain of matmuls: the QKV/O
 projections, the (possibly gated) MLP, and the vocabulary head.  Each one
@@ -36,8 +36,12 @@ step" for the same reason.
 grouped expert FFN (``models/moe.py`` dispatch -> per-expert gate/up/down
 -> combine) with the *expert dimension on the contraction ring*: each
 c-rank owns ``E/Pc`` experts, the expert ff dim shards over n, and the
-only communication is one all-reduce of the combined ``[g, t, d]`` output
-over the ``(n, c)`` plane (tag ``"moe_combine"``, scope ``"moe_ffn"``).
+forward's only communication is one all-reduce of the combined
+``[g, t, d]`` output over the ``(n, c)`` plane (tag ``"moe_combine"``,
+scope ``"moe_ffn"``).  Its backward sums the tokens' gradient over that
+plane (``"moe_dx"``) and the combine weights' over n (``"moe_dcomb"``),
+since each rank's experts and ff columns give part of each, and gathers
+the weight shards' gradients (``"reshard"``).
 
 Every rank must pick the same greedy token, or the ranks' engines
 diverge and the next collective hangs.  Every rank computes the
@@ -55,8 +59,8 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.dist import collectives
-from repro_torch.dist.collectives import (SCHEDULES, note_scope, psum, shard,
-                                          unshard)
+from repro_torch.dist.collectives import (SCHEDULES, note_scope, psum,
+                                          pvary, shard, unshard)
 from repro_torch.dist.matmul import (AXES, OUT_SPEC, W_SPEC, X_SPEC,
                                      matmul_comm_elems, matmul_distributed,
                                      matmul_grid_divides, matmul_mem_elems)
@@ -168,8 +172,14 @@ def expert_ffn_distributed(xg, disp, comb, w_gate, w_up, w_down,
         raise ValueError(f"experts {e} % Pc {grid[2]} or d_ff {f} % Pn "
                          f"{grid[1]}")
     with note_scope("moe_ffn"):
+        # each (n, c) rank's experts and ff columns give part of the
+        # tokens' and the combine weights' gradients: summed over the
+        # ranks that hold the rest in the backward
         return _expert_ffn_local(
-            xg, shard(disp, mesh, DISP_SPEC), shard(comb, mesh, DISP_SPEC),
+            pvary(xg, mesh, ("n", "c"), bwd_tag="moe_dx"),
+            shard(disp, mesh, DISP_SPEC),
+            shard(comb, mesh, DISP_SPEC, grad_psum_axes=("n",),
+                  bwd_tag="moe_dcomb"),
             shard(w_gate, mesh, W_UP_SPEC), shard(w_up, mesh, W_UP_SPEC),
             shard(w_down, mesh, W_DOWN_SPEC), mesh, act=act)
 

@@ -71,7 +71,8 @@ def make_grid_train_step(optimizer: AdamW, mesh: DeviceMesh, *,
         loss_cnn, pool_every=pool_every)
     loss = functools.partial(base, dist_mesh=mesh, dist_schedule=schedule,
                              dist_save_gathered=save_gathered)
-    return make_train_step(loss, optimizer, n_microbatches=n_microbatches)
+    return make_train_step(loss, optimizer, n_microbatches=n_microbatches,
+                           mode="dist-grid")
 
 
 def init_grid_train_state(params, optimizer: AdamW) -> TrainState:

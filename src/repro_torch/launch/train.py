@@ -1,43 +1,60 @@
-"""The fault-tolerant CNN trainer -- the port of ``repro/launch/train.py``.
+"""The trainer -- the port of ``repro/launch/train.py``.  Two drivers
+behind ``--mesh``:
 
-``--mesh dist-grid`` trains the CNN on the explicit ``(Pb,Ph,Pw,Pk,Pc)``
-grid through ``dist/train.py::make_resilient_train_loop``: the grid is
-re-synthesized over the ranks on every (re)start, restore walks back past
-corrupt checkpoints, a watchdog saves on wedged steps, SIGTERM saves and
-stops every rank at the same step, and ``--fault-plan`` (or the
-``REPRO_FAULT_PLAN`` environment variable the reference reads too)
-injects deterministic failures (``fault/inject.py``).  ``--minimize
-time`` ranks the grids by the calibrated replay (``repro_torch.perf``,
-the table ``load_calib`` resolves: ``REPRO_CALIB``, else the checked-in
-``CALIB.json``) and prints one ``[calib]`` line with that table's
-provenance.  ``--ranks N``
-starts N ranks through ``dist.spawn.run_spmd`` (gloo on the CPU, one card
-each under nccl); a world of one runs in this process, so a SIGTERM sent
-to it reaches the loop.  The ``[resilient]`` and ``[fault]`` lines are the
-reference's, letter for letter, so one regex reads either package's
-output.
+* ``--mesh host`` (default): the dense LM trainer -- the synthetic data
+  pipeline (``data/pipeline.py``, prefetched on a thread), the train step
+  (``train/step.py``, ``mode="gspmd"``, AdamW under a cosine schedule),
+  checkpoints every ``--ckpt-every`` steps, the straggler monitor, and a
+  SIGTERM save.  On one rank the reference's host mesh is the identity;
+  more than one rank needs the reference's GSPMD sharding
+  (``parallel/sharding.py``), which the port has not yet, so it raises.
+  Two deliberate differences from the reference: a periodic checkpoint
+  is labelled with the steps it has taken (the reference labels it with
+  the loop index of its last step, so a resume from it repeats that
+  step), and a SIGTERM ends the run after the emergency save at the next
+  step boundary (the reference's handler returns and training goes on).
+  ``--fault-plan`` fires its ``sigterm`` faults at the ``step`` point.
+* ``--mesh dist-grid``: the CNN on the explicit ``(Pb,Ph,Pw,Pk,Pc)`` grid
+  through ``dist/train.py::make_resilient_train_loop``: the grid is
+  re-synthesized over the ranks on every (re)start, restore walks back
+  past corrupt checkpoints, a watchdog saves on wedged steps, SIGTERM
+  saves and stops every rank at the same step, and ``--fault-plan`` (or
+  the ``REPRO_FAULT_PLAN`` environment variable the reference reads too)
+  injects deterministic failures (``fault/inject.py``).  ``--minimize
+  time`` ranks the grids by the calibrated replay (``repro_torch.perf``,
+  the table ``load_calib`` resolves: ``REPRO_CALIB``, else the
+  checked-in ``CALIB.json``) and prints one ``[calib]`` line with that
+  table's provenance.  ``--ranks N`` starts N ranks through
+  ``dist.spawn.run_spmd`` (gloo on the CPU, one card each under nccl); a
+  world of one runs in this process, so a SIGTERM sent to it reaches the
+  loop.  The ``[resilient]`` and ``[fault]`` lines are the reference's,
+  letter for letter, so one regex reads either package's output.
 
-``--mesh host``, the dense LM trainer, needs ``loss_lm`` and waits for
-the LM-training slice of the port.
+CPU-scale runs::
 
-CPU-scale run (8 gloo ranks, preempted at step 12)::
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --device cpu --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/lm
 
   PYTHONPATH=src python -m repro_torch.launch.train --mesh dist-grid \\
       --ranks 8 --device cpu --steps 20 --batch 8 --ckpt-dir /tmp/ckpt \\
       --fault-plan '{"faults": [{"kind": "sigterm", "step": 12}]}'
 
-On a card: ``--ranks 1`` (the default there is one rank per card).
+On a card: drop ``--device cpu`` (``--ranks 1`` for the grid; its
+default there is one rank per card).
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Dict
 
 import torch
+from torch.utils import _pytree as pytree
 
-LM_LATER = ("--mesh host (the dense LM trainer) needs loss_lm, which "
-            "waits for the LM-training slice of the port")
+HOST_RANKS_LATER = ("--mesh host on more than one rank shards the LM by the "
+                    "reference's GSPMD specs (parallel/sharding.py), which "
+                    "the port has not yet (ROADMAP Queue 1 item 3(e))")
 
 
 def _load_fault_plan(spec: str):
@@ -118,22 +135,132 @@ def _main_dist_grid(args) -> Dict:
     return report
 
 
+def _main_host(args) -> Dict:
+    """The dense LM trainer on one rank; returns the report: each step's
+    loss, the first and the end step, and whether a SIGTERM ended it."""
+    from repro_torch.ckpt.checkpointer import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, Prefetcher,
+                                           SyntheticTokens, to_torch)
+    from repro_torch.device import resolve_device
+    from repro_torch.fault.inject import FaultInjector
+    from repro_torch.fault.monitor import EmergencySaver, StragglerMonitor
+    from repro_torch.models.api import model_fns
+    from repro_torch.train.optim import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    if args.ranks > 1:
+        raise NotImplementedError(HOST_RANKS_LATER)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    fns = model_fns(cfg)
+    print(f"[train] {cfg.arch_id} ({'smoke' if args.smoke else 'full'}) "
+          f"ranks=1 device={device.type} dtype={cfg.dtype}", flush=True)
+
+    params = fns.init(torch.Generator(device=device).manual_seed(0), cfg,
+                      device=device)
+    n_params = sum(p.numel() for p in pytree.tree_leaves(params))
+    print(f"[train] {n_params / 1e6:.2f}M params", flush=True)
+
+    opt = AdamW(lr=cosine_schedule(args.lr, warmup=20, total=args.steps))
+    state = init_train_state(params, opt)
+    step_fn = make_train_step(lambda p, b: fns.loss(p, cfg, b), opt,
+                              n_microbatches=args.microbatches,
+                              mode="gspmd")
+
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    start = 0
+    if mgr and args.resume:
+        restored, step = mgr.restore_latest(state, device=device)
+        if restored is not None:
+            state, start = restored, step
+            print(f"[train] resumed from step {step}", flush=True)
+
+    saver = None
+    if mgr:
+        saver = EmergencySaver(
+            lambda: (mgr.wait(), mgr.save(state, int(state.opt.step)))
+        ).install()
+    plan = _load_fault_plan(args.fault_plan)
+    injector = FaultInjector(plan) if plan is not None else None
+
+    data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq,
+                          vocab=cfg.vocab,
+                          frames=cfg.family == "encdec",
+                          d_model=cfg.d_model,
+                          positions3d=cfg.family == "vlm")
+    pf = Prefetcher(SyntheticTokens(data_cfg), start_step=start)
+    monitor = StragglerMonitor()
+    losses, preempted, end = [], False, start
+    try:
+        t_last = time.time()
+        for step in range(start, args.steps):
+            if injector is not None:
+                injector.fire("step", step, {"ckpt_root": args.ckpt_dir})
+            if saver is not None and saver.triggered:
+                preempted = True
+                print(f"[train] preempted at step {step} (emergency "
+                      f"checkpoint committed)", flush=True)
+                break
+            batch = to_torch(pf.next(), device)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            end = step + 1
+            dt = time.time() - t_last
+            t_last = time.time()
+            if monitor.observe(step, dt):
+                print(f"[fault] persistent straggling at step {step} "
+                      f"(ema {monitor.stats.ema:.3f}s) — checkpointing",
+                      flush=True)
+                if mgr:
+                    mgr.save(state, int(state.opt.step), async_=True)
+                monitor.consecutive = 0
+            if step % args.log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"dt {dt*1e3:.0f}ms", flush=True)
+            if mgr and step and step % args.ckpt_every == 0:
+                mgr.save(state, int(state.opt.step), async_=True)
+        if mgr and not preempted:
+            mgr.wait()
+            mgr.save(state, args.steps)
+            print(f"[train] final checkpoint at {args.steps}", flush=True)
+    finally:
+        pf.close()
+        if mgr:
+            mgr.wait()
+        if saver:
+            saver.uninstall()
+    if losses:
+        print(f"[train] done: final loss {losses[-1]:.4f}", flush=True)
+    return {"losses": losses, "start_step": start, "end_step": end,
+            "preempted": preempted}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
     ap.add_argument("--mesh", default="host",
                     choices=("host", "dist-grid"),
-                    help="host: the dense LM trainer (not ported yet); "
-                         "dist-grid: the resilient CNN on the conv grid")
+                    help="host: the dense LM trainer; dist-grid: the "
+                         "resilient CNN on the conv grid")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--channels", default="8,8",
-                    help="CNN channel widths, comma-separated")
+                    help="dist-grid CNN channel widths, comma-separated")
     ap.add_argument("--in-channels", type=int, default=4)
     ap.add_argument("--hw", type=int, default=8,
-                    help="input spatial extent")
+                    help="dist-grid input spatial extent")
     ap.add_argument("--classes", type=int, default=10)
     ap.add_argument("--schedule", default="allgather",
                     choices=("allgather", "ring", "ring2"))
@@ -148,15 +275,13 @@ def main(argv=None):
     ap.add_argument("--fault-log", default="",
                     help="JSON-lines FaultEvent log path (rank 0)")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="ranks to start (default: one per card, or 1 on "
-                         "the CPU)")
+                    help="ranks to start (host: 1; dist-grid: default one "
+                         "per card, or 1 on the CPU)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (gloo ranks)")
-    args, rest = ap.parse_known_args(argv)
+    args = ap.parse_args(argv)
     if args.mesh == "host":
-        raise NotImplementedError(LM_LATER)
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+        return _main_host(args)
     return _main_dist_grid(args)
 
 

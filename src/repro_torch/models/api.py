@@ -4,7 +4,7 @@ functions -- the port of ``repro/models/api.py``.
 Every architecture exposes::
 
   init(generator, cfg, *, device=None) -> params
-  loss(params, cfg, batch) -> scalar                 (waits for LM training)
+  loss(params, cfg, batch) -> scalar                 (train objective)
   forward(params, cfg, tokens, ...) -> hidden        (None for encdec)
   init_cache(cfg, batch, max_seq, **kw) -> cache     (serve state)
   prefill(params, cfg, cache, ...) -> (logits, cache)
@@ -12,8 +12,10 @@ Every architecture exposes::
 
 ``init_cache`` takes ``device=`` (``cuda`` by default), the transformer
 families ``per_slot=`` and the encoder-decoder ``enc_len=`` (default
-``max_seq``).  Every family's loss needs ``chunked_cross_entropy``,
-which comes with the LM-training slice: ``loss`` raises until then.
+``max_seq``).  ``loss`` takes the batch of ``data.pipeline``
+(``tokens``, ``labels``; the encoder's ``frames``, the vlm's
+``positions``); the transformer families' also take ``dist_mesh=`` /
+``dist_schedule=``.
 """
 
 from __future__ import annotations
@@ -23,11 +25,6 @@ from typing import Callable, Dict
 
 from repro_torch.models import encdec, hybrid, lm, ssm_lm
 from repro_torch.models.config import ModelConfig
-
-LM_TRAINING_LATER = ("the LM losses wait for the LM-training slice of the "
-                     "port (chunked_cross_entropy, the flash-attention "
-                     "backward)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelFns:
@@ -39,33 +36,29 @@ class ModelFns:
     decode_step: Callable
 
 
-def _loss_later(params, cfg, batch, **kw):
-    raise NotImplementedError(LM_TRAINING_LATER)
-
-
 _TRANSFORMER = ModelFns(
-    init=lm.init_lm, loss=_loss_later, forward=lm.forward_lm,
+    init=lm.init_lm, loss=lm.loss_lm, forward=lm.forward_lm,
     init_cache=lambda cfg, batch, max_seq, **kw: lm.init_cache(
         cfg, batch, max_seq, per_slot=kw.get("per_slot", False),
         device=kw.get("device")),
     prefill=lm.prefill, decode_step=lm.decode_step)
 
 _SSM = ModelFns(
-    init=ssm_lm.init_ssm_lm, loss=_loss_later,
+    init=ssm_lm.init_ssm_lm, loss=ssm_lm.loss_ssm_lm,
     forward=ssm_lm.forward_ssm_lm,
     init_cache=lambda cfg, batch, max_seq, **kw: ssm_lm.init_cache_ssm(
         cfg, batch, max_seq, device=kw.get("device")),
     prefill=ssm_lm.prefill_ssm, decode_step=ssm_lm.decode_step_ssm)
 
 _HYBRID = ModelFns(
-    init=hybrid.init_hybrid, loss=_loss_later,
+    init=hybrid.init_hybrid, loss=hybrid.loss_hybrid,
     forward=hybrid.forward_hybrid,
     init_cache=lambda cfg, batch, max_seq, **kw: hybrid.init_cache_hybrid(
         cfg, batch, max_seq, device=kw.get("device")),
     prefill=hybrid.prefill_hybrid, decode_step=hybrid.decode_step_hybrid)
 
 _ENCDEC = ModelFns(
-    init=encdec.init_encdec, loss=_loss_later,
+    init=encdec.init_encdec, loss=encdec.loss_encdec,
     forward=None,
     init_cache=lambda cfg, batch, max_seq, **kw: encdec.init_cache_encdec(
         cfg, batch, max_seq, kw.get("enc_len", max_seq),

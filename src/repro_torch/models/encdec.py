@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder backbone (family "encdec") -- the port of
-``repro/models/encdec.py``, its serving half.
+``repro/models/encdec.py``.
 
 As in the reference the audio frontend (log-mel + conv downsampling) is a
 STUB: the caller gives precomputed frame embeddings [B, T, d].  The
@@ -9,7 +9,9 @@ scans stacked layers; here each layer is a dict in ``params["enc"]`` /
 ``params["dec"]`` and the stacks are Python loops.  The cache keeps the
 reference's stacked layout; ``prefill_encdec`` and
 ``decode_step_encdec`` write it in place and return a dict sharing those
-tensors with the new ``len``.  ``loss_encdec`` waits for LM training.
+tensors with the new ``len``.  ``cfg.remat`` checkpoints each encoder and
+decoder layer of the training forward (``layers.remat``), as the
+reference's ``jax.checkpoint`` of its scan bodies.
 """
 
 from __future__ import annotations
@@ -64,15 +66,20 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
     """frames: [B, T, d] precomputed frame embeddings (stub frontend)."""
     b, t, _ = frames.shape
     positions = _positions(b, t, frames.device)
-    h = frames.to(cfg.torch_dtype)
-    for blk in params["enc"]:
+
+    def layer(blk, h):
         h = h + L.attention(blk["attn"],
                             L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
                             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.head_dim, positions=positions,
                             theta=cfg.rope_theta, causal=False)
-        h = h + L.mlp(blk["mlp"], L.rmsnorm(h, blk["ln2"], cfg.norm_eps),
-                      "gelu")
+        return h + L.mlp(blk["mlp"], L.rmsnorm(h, blk["ln2"], cfg.norm_eps),
+                         "gelu")
+
+    layer = L.remat(layer, cfg.remat)
+    h = frames.to(cfg.torch_dtype)
+    for blk in params["enc"]:
+        h = layer(blk, h)
     return L.rmsnorm(h, params["ln_enc"], cfg.norm_eps)
 
 
@@ -108,17 +115,32 @@ def decode_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     """The decoder's forward: tokens [B,S] -> hidden [B,S,d]
     (final-normed)."""
     b, s = tokens.shape
-    h = L.embed(params["emb"], tokens)
     positions = _positions(b, s, tokens.device)
-    for blk in params["dec"]:
+
+    def layer(blk, h):
         h = h + L.attention(blk["attn"],
                             L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
                             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.head_dim, positions=positions,
                             theta=cfg.rope_theta, causal=True)
         h = h + _cross(blk, h, *_xkv(blk, enc_out, cfg), cfg)
-        h = h + _mlp(blk, h, cfg)
+        return h + _mlp(blk, h, cfg)
+
+    layer = L.remat(layer, cfg.remat)
+    h = L.embed(params["emb"], tokens)
+    for blk in params["dec"]:
+        h = layer(blk, h)
     return L.rmsnorm(h, params["ln_f"], cfg.norm_eps)
+
+
+def loss_encdec(params: Dict, cfg: ModelConfig, batch: Dict
+                ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``frames`` [B,T,d],
+    ``tokens``, ``labels`` [B,S]) through the encoder and the decoder."""
+    enc_out = encode(params, cfg, batch["frames"])
+    h = decode_train(params, cfg, batch["tokens"], enc_out)
+    return L.chunked_cross_entropy(h, params["emb"]["lm_head"],
+                                   batch["labels"])
 
 
 # ---------------------------------------------------------------- serve ---

@@ -1,6 +1,6 @@
 """Zamba2-style hybrid LM (family "hybrid"): a Mamba2 backbone with one
 SHARED attention+MLP block applied every ``cfg.attn_every`` layers -- the
-port of ``repro/models/hybrid.py``, its serving half.
+port of ``repro/models/hybrid.py``.
 
 The reference scans the Mamba2 layers and applies the shared block under
 ``lax.cond`` at flagged depths; here the layers are a Python loop (one
@@ -12,7 +12,9 @@ conv/SSD states, in the reference's stacked layout; ``prefill_hybrid``
 and ``decode_step_hybrid`` write them in place and return a dict sharing
 those tensors with the new ``len``.  The shared block is the decoder
 LM's attention + MLP block (``models/lm.py``), which computes the same
-function.  ``loss_hybrid`` waits for LM training.
+function.  ``cfg.remat`` checkpoints each layer of the training forward
+(the Mamba2 block and, where flagged, the shared block after it), as the
+reference's ``jax.checkpoint`` of its scan body.
 """
 
 from __future__ import annotations
@@ -87,13 +89,28 @@ def forward_hybrid(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-    for blk, flag in zip(params["mblocks"], _attn_flags(cfg)):
-        y, _ = _mamba(blk, h, cfg)
-        h = h + y
+
+    def layer(blk, shared, hh, flag):
+        y, _ = _mamba(blk, hh, cfg)
+        hh = hh + y
         if flag:
-            h, _ = lm._block_apply(params["shared"], h, cfg=cfg,
-                                   positions=positions, window=0)
+            hh, _ = lm._block_apply(shared, hh, cfg=cfg,
+                                    positions=positions, window=0)
+        return hh
+
+    layer = L.remat(layer, cfg.remat)
+    for blk, flag in zip(params["mblocks"], _attn_flags(cfg)):
+        h = layer(blk, params["shared"], h, flag)
     return L.rmsnorm(h, params["ln_f"], cfg.norm_eps)
+
+
+def loss_hybrid(params: Dict, cfg: ModelConfig, batch: Dict
+                ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels`` [B,S])."""
+    h = forward_hybrid(params, cfg, batch["tokens"])
+    return L.chunked_cross_entropy(h, params["emb"]["lm_head"],
+                                   batch["labels"])
 
 
 # ---------------------------------------------------------------- serve ---

@@ -1,5 +1,5 @@
-"""Shared neural layers: norms, RoPE/M-RoPE, GQA attention, MLPs -- the
-port of ``repro/models/layers.py``, its serving half.
+"""Shared neural layers: norms, RoPE/M-RoPE, GQA attention, MLPs, the
+chunked vocabulary loss -- the port of ``repro/models/layers.py``.
 
 Functional style: every layer is ``(params, inputs) -> outputs`` on
 tensors, with an ``init_*`` companion that draws from an explicit
@@ -7,22 +7,21 @@ tensors, with an ``init_*`` companion that draws from an explicit
 (gemma3 local layers) and bidirectional attention.  Computations
 accumulate in f32 where it matters (norms, softmax, logits).  Attention is
 plain torch code, written in the reference's summation order: the
-reference has no Pallas kernel for it.
+reference has no Pallas kernel for it.  :func:`flash_attention` carries
+the reference's custom VJP as a ``torch.autograd.Function``: it saves
+``(q, k, v, out, lse)`` and its backward recomputes the probabilities per
+(q, k) block pair.
 
 The projection hook ``mm`` takes ``(x, w, name)``: ``name`` is the
 parameter's key (``"wq"``, ``"w_up"``, ...), which ``dist.lm`` uses to tag
 each routed projection's collectives; the reference's hook takes
 ``(x, w)``.
 
-Not here, by design: the flash-attention backward (``_flash_bwd``, the
-``custom_vjp`` rules) and ``chunked_cross_entropy`` wait for LM
-training; :func:`flash_attention` is its forward.  The reference's GSPMD
-sharding pins (``set_attention_mesh``, ``_shard_heads``,
-``replicate_model``, ``shard_residual``) annotate tensors for its
-``gspmd`` mode; the port has no such mode (every routed projection is an
-explicit per-rank op), so they are left out -- they would be the
-identity -- and come with ``parallel/sharding.py`` in the LM-training
-slice.
+Not here, by design: the reference's GSPMD sharding pins
+(``set_attention_mesh``, ``_shard_heads``, ``replicate_model``,
+``shard_residual``) annotate tensors for its ``gspmd`` mode on more than
+one device; on one rank they are the identity, and they come with the
+port of ``parallel/sharding.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _init(generator: torch.Generator, shape, scale=None,
@@ -210,21 +210,24 @@ def _split5(x, n, c):
     return x.reshape(b, n, c, h, d).permute(1, 0, 3, 2, 4)
 
 
-def flash_attention(q, k, v, window, causal: bool, scale: float,
-                    q_chunk: int, k_chunk: int) -> torch.Tensor:
-    """The forward of the reference's ``flash_attention``:
-    q:[B,Sq,H,D]; k,v:[B,Sk,G,D] with G | H (grouped GQA, never expanded
-    to H); ``window`` 0 = global.  Online softmax per q-chunk over the key
-    chunks, ``p`` cast to v's dtype before the PV product as the
-    reference does."""
+def _merge5(x5):
+    n, b, h, c, d = x5.shape
+    return x5.permute(1, 0, 3, 2, 4).reshape(b, n * c, h, d)
+
+
+def _flash_fwd(q, k, v, window: int, causal: bool, scale: float,
+               q_chunk: int, k_chunk: int):
+    """Online softmax per q-chunk over the key chunks, ``p`` cast to v's
+    dtype before the PV product as the reference does.  Returns ``out``
+    [B,Sq,H,D] in v's dtype and the log-sum-exp ``lse6``
+    [nq,B,G,R,Qc] f32."""
     b, sq, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
-    window = int(window)
     nq, nk = sq // q_chunk, sk // k_chunk
     q6 = _split_q6(q, nq, q_chunk, g)
     k5, v5 = _split5(k, nk, k_chunk), _split5(v, nk, k_chunk)
     r = h // g
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
         m = torch.full((b, g, r, q_chunk), _NEG, device=q.device)
@@ -243,8 +246,85 @@ def flash_attention(q, k, v, window, causal: bool, scale: float,
             acc = acc * corr[..., None] + torch.einsum(
                 "bgrqk,bgkd->bgrqd", p.float(), v5[kj].float())
             m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    return _merge_q6(torch.stack(outs).to(v.dtype))
+        l = torch.clamp(l, min=1e-30)
+        outs.append(acc / l[..., None])
+        lses.append(m + torch.log(l))
+    return _merge_q6(torch.stack(outs).to(v.dtype)), torch.stack(lses)
+
+
+def _flash_bwd(q, k, v, out, lse6, gr, window: int, causal: bool,
+               scale: float, q_chunk: int, k_chunk: int):
+    """The reference's ``_flash_bwd``: ``delta = sum(g * out)`` in f32;
+    per q chunk a loop over the key chunks that accumulates dq, and dk /
+    dv per key chunk in f32; GQA grouped (k, v never expanded); the masks
+    applied before ``exp``."""
+    b, sq, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    nq, nk = sq // q_chunk, sk // k_chunk
+    q6 = _split_q6(q, nq, q_chunk, g)
+    k5, v5 = _split5(k, nk, k_chunk), _split5(v, nk, k_chunk)
+    g6 = _split_q6(gr, nq, q_chunk, g)
+    delta6 = (g6.float() * _split_q6(out, nq, q_chunk, g).float()).sum(-1)
+    dk5 = torch.zeros((nk, b, g, k_chunk, d), device=q.device)
+    dv5 = torch.zeros((nk, b, g, k_chunk, d), device=q.device)
+    dqs = []
+    for qi in range(nq):
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        q_blk, g_blk = q6[qi].float(), g6[qi].float()
+        lse_blk, delta_blk = lse6[qi], delta6[qi]
+        dq_blk = torch.zeros((b, g, h // g, q_chunk, d), device=q.device)
+        for kj in range(nk):
+            k_blk, v_blk = k5[kj].float(), v5[kj].float()
+            s = torch.einsum("bgrqd,bgkd->bgrqk", q_blk, k_blk) * scale
+            kpos = kj * k_chunk + torch.arange(k_chunk, device=q.device)
+            msk = _block_mask(qpos, kpos, causal, window)
+            s = torch.where(msk[None, None, None], s, _NEG)
+            p = torch.exp(s - lse_blk[..., None]).to(v.dtype).float()
+            dv_j = torch.einsum("bgrqk,bgrqd->bgkd", p, g_blk)
+            dp = torch.einsum("bgrqd,bgkd->bgrqk", g_blk, v_blk)
+            ds = (p * (dp - delta_blk[..., None]) * scale).to(
+                v.dtype).float()
+            dq_blk = dq_blk + torch.einsum("bgrqk,bgkd->bgrqd", ds, k_blk)
+            dk5[kj] += torch.einsum("bgrqk,bgrqd->bgkd", ds, q_blk)
+            dv5[kj] += dv_j
+        dqs.append(dq_blk)
+    return (_merge_q6(torch.stack(dqs)).to(q.dtype),
+            _merge5(dk5).to(k.dtype), _merge5(dv5).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP: the residuals are
+    ``(q, k, v, out, lse)`` -- O(S*D) -- and the backward recomputes the
+    probabilities per (q, k) block pair."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, scale, q_chunk, k_chunk):
+        out, lse6 = _flash_fwd(q, k, v, window, causal, scale, q_chunk,
+                               k_chunk)
+        ctx.save_for_backward(q, k, v, out, lse6)
+        ctx.args = (window, causal, scale, q_chunk, k_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, gr):
+        q, k, v, out, lse6 = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse6, gr.contiguous(),
+                                *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, window, causal: bool, scale: float,
+                    q_chunk: int, k_chunk: int) -> torch.Tensor:
+    """The reference's ``flash_attention``: q:[B,Sq,H,D]; k,v:[B,Sk,G,D]
+    with G | H (grouped GQA, never expanded to H); ``window`` 0 = global.
+    Differentiable through :class:`_FlashAttention` when an input needs
+    a gradient."""
+    window = int(window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, window, causal, scale,
+                                     q_chunk, k_chunk)
+    return _flash_fwd(q, k, v, window, causal, scale, q_chunk, k_chunk)[0]
 
 
 def make_mask(sq: int, sk: int, *, causal: bool, window=0, offset: int = 0,
@@ -358,3 +438,42 @@ def init_embeddings(generator, vocab: int, d_model: int,
 
 def embed(emb: Dict, tokens: torch.Tensor) -> torch.Tensor:
     return emb["tok"][tokens.long()]
+
+
+def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512
+                          ) -> torch.Tensor:
+    """Mean token cross-entropy without the full [B,S,V] logits: a loop
+    over sequence chunks of ``min(chunk, S)``, each with f32 logits
+    ``hx @ lm_head``, their log-sum-exp and the target picked by a masked
+    sum over the vocabulary (the reference's, which reduces over a
+    vocabulary its GSPMD mode may shard); the chunk sums accumulated in
+    f32 in chunk order, over ``B * S``.  h: [B,S,d], labels: [B,S]."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} must divide the sequence {s}")
+    vocab = torch.arange(lm_head.shape[1], device=h.device)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        logits = (h[:, c0:c0 + chunk] @ lm_head).float()     # [B,c,V]
+        lse = torch.logsumexp(logits, dim=-1)
+        sel = vocab == labels[:, c0:c0 + chunk, None]
+        tgt = torch.where(sel, logits, 0.0).sum(dim=-1)
+        total = total + (lse - tgt).sum()
+    return total / (b * s)
+
+
+def remat(fn, on: bool):
+    """``fn`` under activation checkpointing when ``on`` and autograd is
+    recording -- ``torch.utils.checkpoint`` (non-reentrant) keeps the
+    inputs and recomputes the rest in the backward, as the reference's
+    ``jax.checkpoint`` of a layer's body does -- else ``fn`` itself."""
+    if not on:
+        return fn
+
+    def run(*args, **kw):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kw)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run

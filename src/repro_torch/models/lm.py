@@ -1,5 +1,5 @@
 """Decoder-only LM covering the dense / moe / vlm families -- the port of
-``repro/models/lm.py``, its serving half.
+``repro/models/lm.py``.
 
 Per-layer global/local attention flags (gemma3's 5:1 pattern), GQA +
 RoPE / M-RoPE, dense-MLP or MoE feed-forward.  The reference scans over
@@ -16,7 +16,11 @@ shares those tensors with the new ``len``.
 ``dist_mesh`` routes every projection through
 ``dist.lm.dist_projection`` (``dist.matmul.matmul_distributed`` on the
 ``(Pm, Pn, Pc)`` grid) and the MoE expert FFN through
-``dist.lm.expert_ffn_distributed``.  ``loss_lm`` waits for LM training.
+``dist.lm.expert_ffn_distributed``; :func:`loss_lm` trains through
+both, forward and backward.  ``cfg.remat`` checkpoints each block
+(``layers.remat``): the backward recomputes the whole block, where the
+reference's policy keeps the flash attention's output and log-sum-exp
+(``flash_out``, ``flash_lse``); the gradient is the same.
 """
 
 from __future__ import annotations
@@ -124,14 +128,12 @@ def _block_apply(blk: Dict, h: torch.Tensor, *, cfg: ModelConfig,
     return h + m, aux
 
 
-def forward_lm(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-               positions: Optional[torch.Tensor] = None,
-               vision_embeds: Optional[torch.Tensor] = None,
-               dist_mesh=None,
-               dist_schedule: str = "allgather") -> torch.Tensor:
-    """tokens: [B,S] -> hidden [B,S,d] (pre-logits, final-normed).
-    ``positions`` is [B,S], or [B,3,S] for M-RoPE; ``vision_embeds``
-    (the VLM's stub frontend) replaces the first embeddings."""
+def _forward_lm(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                vision_embeds: Optional[torch.Tensor] = None,
+                dist_mesh=None, dist_schedule: str = "allgather"):
+    """(hidden [B,S,d] final-normed, the MoE aux loss summed over the
+    layers, 0.0 without experts)."""
     b, s = tokens.shape
     h = L.embed(params["emb"], tokens)
     if vision_embeds is not None:
@@ -141,11 +143,48 @@ def forward_lm(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
     mm = _make_mm(dist_mesh, dist_schedule)
-    for blk, win in zip(params["blocks"], layer_windows(cfg)):
-        h, _ = _block_apply(blk, h, cfg=cfg, positions=positions,
+
+    def step(blk, hh, win):
+        return _block_apply(blk, hh, cfg=cfg, positions=positions,
                             window=win, mm=mm, dist_mesh=dist_mesh,
                             dist_schedule=dist_schedule)
-    return L.rmsnorm(h, params["ln_f"], cfg.norm_eps)
+
+    step = L.remat(step, cfg.remat)
+    aux = 0.0
+    for blk, win in zip(params["blocks"], layer_windows(cfg)):
+        h, aux_i = step(blk, h, win)
+        aux = aux + aux_i
+    return L.rmsnorm(h, params["ln_f"], cfg.norm_eps), aux
+
+
+def forward_lm(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None,
+               vision_embeds: Optional[torch.Tensor] = None,
+               dist_mesh=None,
+               dist_schedule: str = "allgather") -> torch.Tensor:
+    """tokens: [B,S] -> hidden [B,S,d] (pre-logits, final-normed).
+    ``positions`` is [B,S], or [B,3,S] for M-RoPE; ``vision_embeds``
+    (the VLM's stub frontend) replaces the first embeddings."""
+    return _forward_lm(params, cfg, tokens, positions, vision_embeds,
+                       dist_mesh, dist_schedule)[0]
+
+
+def loss_lm(params: Dict, cfg: ModelConfig, batch: Dict, dist_mesh=None,
+            dist_schedule: str = "allgather") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    [B,S]; the vlm's ``positions`` [B,3,S] and ``vision_embeds``), plus
+    ``0.01 * aux / n_layers`` with experts; with ``dist_mesh`` every
+    projection (and the experts) runs on the grid.  The vocabulary head
+    stays a plain ``torch.matmul``, as the reference's is an XLA dot."""
+    h, aux = _forward_lm(params, cfg, batch["tokens"],
+                         positions=batch.get("positions"),
+                         vision_embeds=batch.get("vision_embeds"),
+                         dist_mesh=dist_mesh, dist_schedule=dist_schedule)
+    ce = L.chunked_cross_entropy(h, params["emb"]["lm_head"],
+                                 batch["labels"])
+    if cfg.is_moe:
+        ce = ce + 0.01 * aux / cfg.n_layers
+    return ce
 
 
 # ---------------------------------------------------------------- serve ---

@@ -1,5 +1,5 @@
 """State-space / recurrent blocks: Mamba2 (SSD), mLSTM, sLSTM -- the port
-of ``repro/models/ssm.py``, its forward.
+of ``repro/models/ssm.py``.
 
 Mamba2 and mLSTM share the chunked linear-recurrence template
 
@@ -15,9 +15,13 @@ array.  sLSTM runs as a loop over time with per-head block-diagonal
 recurrence.  The einsums, gates and states are float32 wherever the
 reference casts, also under bfloat16 weights.
 
-Not here: the reference's two ``jax.custom_vjp`` rules (``_clr_scan``'s
-and ``_slstm_scan``'s backward) serve training; they become
-``torch.autograd.Function``s with the LM-training slice.
+The reference's two ``jax.custom_vjp`` rules are
+``torch.autograd.Function``s here, taken when an input needs a gradient:
+:class:`_ClrScan` saves the chunk-boundary states only and recomputes
+each chunk in reverse; :class:`_SlstmScan` accumulates the recurrent
+weight's gradient per batch element and sums over the batch once after
+the loop.  The in-place decode update is never on that path: training
+runs the chunked form on fresh states.
 """
 
 from __future__ import annotations
@@ -58,6 +62,57 @@ def _clr_body(S, xs, causal):
     return S_new, y_intra + y_inter
 
 
+def _clr_chunks(q, k, v, lf, li, S, chunk: int):
+    """The chunk loop: (y [B,S,H,P] f32, final state, the state entering
+    each chunk)."""
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).tril()
+    ys, s_ins = [], []
+    for c0 in range(0, q.shape[1], chunk):
+        c = slice(c0, c0 + chunk)
+        s_ins.append(S)
+        S, y = _clr_body(S, (q[:, c], k[:, c], v[:, c], lf[:, c], li[:, c]),
+                         causal)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S, s_ins
+
+
+class _ClrScan(torch.autograd.Function):
+    """The reference's ``_clr_scan`` custom VJP: the residuals are the
+    inputs and the state entering each chunk; the backward walks the
+    chunks in reverse, recomputing each chunk's body to differentiate
+    it (the default VJP would keep every chunk's O(chunk^2) scores)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lf, li, S0, chunk):
+        y, S, s_ins = _clr_chunks(q, k, v, lf, li, S0, chunk)
+        ctx.save_for_backward(q, k, v, lf, li, *s_ins)
+        ctx.chunk = chunk
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        q, k, v, lf, li, *s_ins = ctx.saved_tensors
+        chunk = ctx.chunk
+        causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                            device=q.device).tril()
+        grads = []
+        dS = dS.float()
+        for i in reversed(range(len(s_ins))):
+            c = slice(i * chunk, (i + 1) * chunk)
+            ins = [t.detach().requires_grad_(True)
+                   for t in (s_ins[i], q[:, c], k[:, c], v[:, c], lf[:, c],
+                             li[:, c])]
+            with torch.enable_grad():
+                S_new, y = _clr_body(ins[0], tuple(ins[1:]), causal)
+                dS, *g = torch.autograd.grad((S_new, y), ins,
+                                             (dS, dy[:, c]))
+            grads.append(g)
+        dq, dk, dv, dlf, dli = (torch.cat(parts[::-1], dim=1)
+                                for parts in zip(*grads))
+        return dq, dk, dv, dlf, dli, dS, None
+
+
 def chunked_linear_recurrence(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, lf: torch.Tensor,
                               li: torch.Tensor, *, chunk: int,
@@ -66,23 +121,21 @@ def chunked_linear_recurrence(q: torch.Tensor, k: torch.Tensor,
     """q,k: [B,S,H,N]; v: [B,S,H,P]; lf,li: [B,S,H] (log gates, lf<=0).
 
     Returns (y [B,S,H,P] in v's dtype, final_state [B,H,N,P] f32).
-    ``state0`` is read, never written."""
+    ``state0`` is read, never written.  Differentiable through
+    :class:`_ClrScan` when an input needs a gradient."""
     b, s, h, n = q.shape
     p = v.shape[-1]
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
-    causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=q.device).tril()
     lf, li = lf.float(), li.float()
     S = (torch.zeros((b, h, n, p), dtype=torch.float32, device=q.device)
          if state0 is None else state0.float())
-    ys = []
-    for c0 in range(0, s, chunk):
-        c = slice(c0, c0 + chunk)
-        S, y = _clr_body(S, (q[:, c], k[:, c], v[:, c], lf[:, c], li[:, c]),
-                         causal)
-        ys.append(y)
-    return torch.cat(ys, dim=1).to(v.dtype), S
+    ins = (q, k, v, lf, li, S)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        y, S = _ClrScan.apply(*ins, chunk)
+    else:
+        y, S, _ = _clr_chunks(*ins, chunk)
+    return y.to(v.dtype), S
 
 
 def linear_recurrence_step(q, k, v, lf, li, state):
@@ -289,17 +342,72 @@ def _slstm_gates(gates, c, n):
     return c2, n2, h2
 
 
-def _slstm_scan(pre, r, bias, carry0):
-    """The reference's ``_slstm_scan`` forward, a loop over time.
-    pre: [B,S,H,4hd] f32; r: [H,hd,4hd] f32; bias: [H,4hd] f32;
-    carry0: (c,n,h) each [B,H,hd] f32.  Returns (hs [B,S,H,hd], carry)."""
-    c, n, h = carry0
-    hs = []
+def _slstm_loop(pre, r, bias, c, n, h):
+    """The loop over time: the states after every step, (cs, ns, hs) each
+    [S,B,H,hd]."""
+    cs, ns, hs = [], [], []
     for t in range(pre.shape[1]):
         gates = pre[:, t] + torch.einsum("bhd,hdk->bhk", h, r) + bias
         c, n, h = _slstm_gates(gates, c, n)
+        cs.append(c)
+        ns.append(n)
         hs.append(h)
-    return torch.stack(hs, dim=1), (c, n, h)
+    return torch.stack(cs), torch.stack(ns), torch.stack(hs)
+
+
+class _SlstmScan(torch.autograd.Function):
+    """The reference's ``_slstm_scan`` custom VJP: the backward walks the
+    steps in reverse, differentiating each cell on its saved states, and
+    accumulates the recurrent weight's and the bias's gradients per batch
+    element, summed over the batch once after the loop."""
+
+    @staticmethod
+    def forward(ctx, pre, r, bias, c0, n0, h0):
+        cs, ns, hs = _slstm_loop(pre, r, bias, c0, n0, h0)
+        ctx.save_for_backward(pre, r, bias, c0, n0, h0, cs, ns, hs)
+        return hs.transpose(0, 1), cs[-1], ns[-1], hs[-1]
+
+    @staticmethod
+    def backward(ctx, dys, dc, dn, dh):
+        pre, r, bias, c0, n0, h0, cs, ns, hs = ctx.saved_tensors
+        b, s = pre.shape[:2]
+        # the states entering each step, the initial carry first
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        n_prev = torch.cat([n0[None], ns[:-1]])
+        h_prev = torch.cat([h0[None], hs[:-1]])
+        dr_b = torch.zeros((b,) + tuple(r.shape), device=pre.device)
+        dbias_b = torch.zeros((b,) + tuple(bias.shape), device=pre.device)
+        dpre = torch.empty_like(pre)
+        for t in reversed(range(s)):
+            dh = dh + dys[:, t]
+            hp = h_prev[t]
+            gates = (pre[:, t] + torch.einsum("bhd,hdk->bhk", hp, r)
+                     + bias).requires_grad_(True)
+            cp = c_prev[t].detach().requires_grad_(True)
+            np_ = n_prev[t].detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = _slstm_gates(gates, cp, np_)
+                dgates, dc, dn = torch.autograd.grad(out, (gates, cp, np_),
+                                                     (dc, dn, dh))
+            dh = torch.einsum("bhk,hdk->bhd", dgates, r)
+            # per-batch weight gradients: outer products, no batch sum
+            dr_b += torch.einsum("bhd,bhk->bhdk", hp, dgates)
+            dbias_b += dgates
+            dpre[:, t] = dgates
+        return dpre, dr_b.sum(0), dbias_b.sum(0), dc, dn, dh
+
+
+def _slstm_scan(pre, r, bias, carry0):
+    """The reference's ``_slstm_scan``: pre: [B,S,H,4hd] f32; r:
+    [H,hd,4hd] f32; bias: [H,4hd] f32; carry0: (c,n,h) each [B,H,hd] f32.
+    Returns (hs [B,S,H,hd], carry).  Differentiable through
+    :class:`_SlstmScan` when an input needs a gradient."""
+    ins = (pre, r, bias) + tuple(carry0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        hs, c, n, h = _SlstmScan.apply(*ins)
+        return hs, (c, n, h)
+    cs, ns, hs = _slstm_loop(*ins)
+    return hs.transpose(0, 1), (cs[-1], ns[-1], hs[-1])
 
 
 def init_slstm(generator, d_model: int, *, n_heads: int,

@@ -1,5 +1,5 @@
 """xLSTM-style LM (family "ssm"): mLSTM blocks with periodic sLSTM blocks
--- the port of ``repro/models/ssm_lm.py``, its serving half.
+-- the port of ``repro/models/ssm_lm.py``.
 
 The reference scans the stacked mLSTM layers, then the stacked sLSTM
 layers (depth-interleaving is order-equivalent for these residual stacks
@@ -9,7 +9,9 @@ Python loops.  Decode carries per-layer recurrent states -- O(1) memory
 in sequence length.  The cache keeps the reference's stacked layout;
 ``prefill_ssm`` and ``decode_step_ssm`` write each layer's new state into
 it in place and return a dict sharing those tensors with the new
-``len``.  ``loss_ssm_lm`` waits for LM training.
+``len``.  ``cfg.remat`` checkpoints each layer of the training forward
+(``layers.remat``), as the reference's ``jax.checkpoint`` of its scan
+bodies.
 """
 
 from __future__ import annotations
@@ -63,26 +65,37 @@ def _apply_stacks(params: Dict, cfg: ModelConfig, h: torch.Tensor, *,
                   ) -> torch.Tensor:
     """The mLSTM stack, then the sLSTM stack.  With ``states`` (the
     cache's ``{"m", "s"}``) each layer starts from its state there and
-    writes its new one back."""
+    writes its new one back; without, each layer is checkpointed under
+    ``cfg.remat``."""
     track = decode or states is not None
-    for i, blk in enumerate(params["mblocks"]):
-        st = {"ssd": states["m"]["ssd"][i]} if track else None
+
+    def mlayer(blk, hh, st=None):
         y, st2 = ssm.mlstm_block(blk["mlstm"],
-                                 L.rmsnorm(h, blk["ln"], cfg.norm_eps),
+                                 L.rmsnorm(hh, blk["ln"], cfg.norm_eps),
                                  expand=cfg.ssm_expand, n_heads=cfg.n_heads,
                                  chunk=cfg.ssm_chunk, ssm_state=st,
                                  decode=decode)
-        h = h + y
+        return hh + y, st2
+
+    def slayer(blk, hh, st=None):
+        y, st2 = ssm.slstm_block(blk["slstm"],
+                                 L.rmsnorm(hh, blk["ln"], cfg.norm_eps),
+                                 n_heads=cfg.n_heads, ssm_state=st,
+                                 decode=decode)
+        return hh + y, st2
+
+    if not track:
+        mlayer = L.remat(mlayer, cfg.remat)
+        slayer = L.remat(slayer, cfg.remat)
+    for i, blk in enumerate(params["mblocks"]):
+        st = {"ssd": states["m"]["ssd"][i]} if track else None
+        h, st2 = mlayer(blk, h, st)
         if track:
             ssm.write_back(states["m"], i, st, st2)
     for i, blk in enumerate(params.get("sblocks", [])):
         st = ({key: states["s"][key][i] for key in ("c", "n", "h")}
               if track else None)
-        y, st2 = ssm.slstm_block(blk["slstm"],
-                                 L.rmsnorm(h, blk["ln"], cfg.norm_eps),
-                                 n_heads=cfg.n_heads, ssm_state=st,
-                                 decode=decode)
-        h = h + y
+        h, st2 = slayer(blk, h, st)
         if track:
             ssm.write_back(states["s"], i, st, st2)
     return h
@@ -94,6 +107,15 @@ def forward_ssm_lm(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     h = L.embed(params["emb"], tokens)
     h = _apply_stacks(params, cfg, h, states=None, decode=False)
     return L.rmsnorm(h, params["ln_f"], cfg.norm_eps)
+
+
+def loss_ssm_lm(params: Dict, cfg: ModelConfig, batch: Dict
+                ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels`` [B,S])."""
+    h = forward_ssm_lm(params, cfg, batch["tokens"])
+    return L.chunked_cross_entropy(h, params["emb"]["lm_head"],
+                                   batch["labels"])
 
 
 def init_cache_ssm(cfg: ModelConfig, batch: int, max_seq: int, *,

@@ -423,14 +423,13 @@ def test_model_fns_families():
                            per_slot=True, device="cpu")
     assert cache["len"].shape == (3,)
     assert cache["k"].shape == (2, 3, 16, 2, 16)
-    with pytest.raises(NotImplementedError, match="LM-training"):
-        fns.loss({}, None, {})
-    # the zoo's families resolve to their own modules; every loss waits
-    # for LM training (chunked_cross_entropy)
+    assert fns.loss is tlm.loss_lm
+    # the zoo's families resolve to their own modules, the loss too (its
+    # values against the reference: tests/test_torch_lm_loss.py)
     for arch, module in (("xlstm-350m", "ssm_lm"), ("zamba2-7b", "hybrid"),
                          ("whisper-tiny", "encdec")):
         zoo = model_fns(get_config(arch, smoke=True))
         assert zoo.prefill.__module__ == f"repro_torch.models.{module}"
         assert zoo.decode_step.__module__ == zoo.prefill.__module__
-        with pytest.raises(NotImplementedError, match="LM-training"):
-            zoo.loss({}, None, {})
+        assert zoo.loss.__module__ == zoo.prefill.__module__
+        assert zoo.loss.__name__.startswith("loss_")

@@ -166,10 +166,18 @@ def test_a_signal_on_one_rank_stops_every_rank(tmp_path):
     assert CheckpointManager(str(tmp_path)).all_steps() == [2]
 
 
-def test_host_mesh_waits_for_lm_training():
+def test_host_mesh_trains_the_lm_on_one_rank(capsys):
+    """``--mesh host`` is the dense LM trainer (one rank; more ranks wait
+    for the GSPMD sharding); unknown flags still exit."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="LM-training slice"):
-        train.main(["--mesh", "host"])
+    report = train.main(["--mesh", "host", "--smoke", "--device", "cpu",
+                         "--arch", "llama3.2-1b", "--steps", "2",
+                         "--batch", "2", "--seq", "8", "--log-every", "1"])
+    assert report["end_step"] == 2 and not report["preempted"]
+    assert all(np.isfinite(report["losses"]))
+    assert "[train] llama3.2-1b (smoke) ranks=1" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="parallel/sharding.py"):
+        train.main(["--mesh", "host", "--ranks", "2", "--device", "cpu"])
     with pytest.raises(SystemExit):
         train.main(["--mesh", "dist-grid", "--bogus", "1"])
