@@ -207,7 +207,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU within ``LOSS_RTOL`` / ``GRAD_RTOL``; (e) ``python -m
    repro_torch.launch.train --mesh host --arch llama3.2-1b --steps 4
    --batch 8 --seq 64`` in a subprocess (full width, its own bf16,
-   dense), run beside (d): exit 0 and four finite losses.
+   dense), run beside (d): exit 0 and four finite losses;
+12. the schedule verifier (``repro_torch.analysis``): the AST lint and
+   the doc lint on the tree (no jax needed), zero findings; then
+   ``analysis.verify.run_specs`` on one rank (nccl, world 1), the static
+   plan, at full width: every distinct conv of the CNN above (batch 64,
+   SAME, the C = 3 first layer included) on ``(1,1,1,1,1)`` and the
+   head's product ``[64,512]@[512,1000]`` on ``(1,1,1)``, each in the
+   three schedules x {fwd, train, train with ``save_gathered=True``}.
+   One ``{"phase": "verify", ...}`` line prints each cell's recorded
+   and analytic wire (zero on one rank) and ratio, the allocator's peak
+   over the cell (``live``) beside the paper's per-op Eq. 11 count
+   (``*_mem_elems``) and their ratio, the band and ``ok``; every cell's
+   lints gate, the memory band included, and the phase's launches of
+   all four kernels, read whole, must be the count the cells give.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -304,6 +317,8 @@ LM_TRAIN_ARCH = "llama3.2-1b"
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 64, 3
 LM_TRAIN_LR = 1e-3
 FLASH_SEQ = 4096   # above the flash threshold: S * S > 2048 ** 2
+# phase 12: the schedule verifier, each cell in every schedule
+VERIFY_SCHEDULES = ("allgather", "ring", "ring2")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2953,6 +2968,90 @@ def lm_train_phase(card):
             kernel_rows, kernel_step)
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the schedule verifier at full width, memory against Eq. 11
+# --------------------------------------------------------------------------
+
+def _verify_specs():
+    """Every distinct conv of the CNN and its head, on one rank, in the
+    three schedules x {fwd + train, train with save_gathered}."""
+    from repro_torch.analysis import verify
+
+    specs, seen = [], set()
+    for c, k, h in conv_layers():
+        if (c, k, h) in seen:
+            continue
+        seen.add((c, k, h))
+        for sched in VERIFY_SCHEDULES:
+            kw = dict(x_shape=(BATCH, c, h, h), w_shape=(k, c, 3, 3))
+            specs += [verify.conv_cell((1,) * 5, sched, **kw),
+                      verify.conv_cell((1,) * 5, sched, save_gathered=True,
+                                       include_fwd=False, **kw)]
+    mcn = (BATCH, CHANNELS[-1], N_CLASSES)
+    for sched in VERIFY_SCHEDULES:
+        specs += [verify.matmul_cell((1, 1, 1), sched, mcn=mcn),
+                  verify.matmul_cell((1, 1, 1), sched, mcn=mcn,
+                                     save_gathered=True, include_fwd=False)]
+    return specs
+
+
+def _verify_launches():
+    """The phase's launches as the code gives them, per schedule: a conv
+    whose C tiles runs the direct conv forward and, in either backward,
+    at dIn and dKer (3 a train variant); the C = 3 layer runs cuDNN
+    forward and at dIn (K = 3 there), the direct conv at the custom
+    backward's dKer only (cuDNN's own backward under save_gathered).
+    The head runs the tile GEMM forward, at dX and at dW."""
+    tiling = {(c, k, h) for c, k, h in conv_layers() if c % 8 == 0}
+    first = {(c, k, h) for c, k, h in conv_layers()} - tiling
+    n = len(VERIFY_SCHEDULES)
+    return {"conv2d": n * (7 * len(tiling) + len(first)),
+            "matmul": n * 7, "skinny_gemm": 0, "wino_gemm": 0}
+
+
+def verify_phase(card):
+    """Phase 12 (see the module docstring).  Returns the phase's launches
+    of each kernel."""
+    import gc
+
+    from repro_torch.analysis import astlint, doclint, verify
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ast_found = astlint.lint_tree(astlint.default_root())
+    doc_found = doclint.lint_tree(doclint.default_root())
+    check(not ast_found, "astlint: " + "; ".join(map(str, ast_found)))
+    check(not doc_found, "doclint: " + "; ".join(map(str, doc_found)))
+    specs = _verify_specs()
+    _zero_counts()
+    reports = verify.run_specs(specs)   # one rank on the card, nccl
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    phase_s = time.perf_counter() - t_phase
+    cells = [{"cell": r.name, "wire_bytes": r.wire_bytes,
+              "analytic_wire_bytes": r.analytic_wire_bytes,
+              "wire_ratio": r.wire_ratio, "live_bytes": r.live_bytes,
+              "analytic_bytes": r.analytic_mem_bytes,
+              "mem_ratio": r.mem_ratio, "band": r.mem_band, "ok": r.ok,
+              "findings": [str(f) for f in r.findings]} for r in reports]
+    print(json.dumps({"phase": "verify", "card": card,
+                      "grids": [[1] * 5, [1, 1, 1]], "batch": BATCH,
+                      "cells": cells, "n_cells": len(cells),
+                      "astlint_findings": len(ast_found),
+                      "doclint_findings": len(doc_found),
+                      "launches": launches, "seconds": phase_s}),
+          flush=True)
+    failed = [c for c in cells if not c["ok"]]
+    check(not failed, f"verify: {len(failed)} cells failed: "
+          + "; ".join(f"{c['cell']}: {c['findings']}" for c in failed))
+    check(all(r.live_bytes is not None and r.mem_ratio is not None
+              for r in reports), "verify: a cell's memory was not read")
+    want = _verify_launches()
+    check(launches == want, f"verify launches {launches} != {want}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
                  launches, by_path):
     """One kernel's line: errors over every shape checked, times summed
@@ -3017,6 +3116,15 @@ def skinny_entry(rows, step, launches, by_path):
             "decode_step": step}
 
 
+_T_START = time.perf_counter()
+
+
+def _clock(after: str) -> None:
+    """The script's wall seconds so far, printed after each phase."""
+    print(json.dumps({"phase": "clock", "after": after, "elapsed_s":
+                      time.perf_counter() - _T_START}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3036,26 +3144,35 @@ def main() -> int:
           f"{_build.library_path().name}", flush=True)
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         print(log.read_text(), flush=True)
+    _clock("build")
 
     rows, path, conv_infer, bf16 = kernel_phase(device)
     print(json.dumps({"phase": "kernels", "conv2d_infer_ms": sum(
         r["kernel_ms"] for r in conv_infer)}), flush=True)
     for name, extra in resnet50_phase(device).items():
         rows[name] += extra
+    _clock("kernels")
     infer = slice_phase()
     train, static = train_phase(card)
+    _clock("train")
     resilient, resilient_ms = resilient_phase(card, train["static"],
                                               static["p50"])
     warm = warm_phase()
     synthesis_phase()
+    _clock("resilient, warm, synthesis")
     serve_rows, serve_step = serve_kernel_phase(device)
     rows["matmul"] += serve_rows["tile"]
     serve, serve_stats = serve_phase(card)
+    _clock("serve")
     perf = perf_phase(card, dict(rows, skinny=serve_rows["skinny"]),
                       static, resilient_ms, serve_stats)
     zoo, _ = zoo_phase(card)
+    _clock("perf, zoo")
     train_lm, train_lm_rows, train_lm_step = lm_train_phase(card)
     rows["matmul"] += train_lm_rows
+    _clock("lm_train")
+    verified = verify_phase(card)
+    _clock("verify")
 
     def by_path(name):
         counts = {"infer": infer.get(name, 0),
@@ -3064,7 +3181,7 @@ def main() -> int:
                   "train_resilient": resilient[name],
                   "warm": warm[name], "perf": perf[name],
                   "zoo": zoo[name],
-                  "train_lm": train_lm[name]}
+                  "train_lm": train_lm[name], "verify": verified[name]}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts
 

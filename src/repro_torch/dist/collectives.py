@@ -57,7 +57,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -70,14 +70,17 @@ SCHEDULES = ("allgather", "ring", "ring2")
 
 class CollectiveNote(NamedTuple):
     """One collective: its kind, the mesh axes it runs over, the call-site
-    tag (which primitive emitted it), its per-rank wire elements and the
-    bytes of one element (``wire_elems * itemsize`` is its wire bytes)."""
+    tag (which primitive emitted it), its per-rank wire elements, the
+    bytes of one element (``wire_elems * itemsize`` is its wire bytes)
+    and, for a permute, its ``(src, dst)`` pairs in axis coordinates (the
+    static verifier's ring and deadlock lints read them)."""
 
     kind: str             # all-reduce | all-gather | collective-permute
     axes: Tuple[str, ...]
     tag: str
     wire_elems: float
     itemsize: int = 4
+    pairs: Optional[Tuple[Tuple[int, int], ...]] = None
 
 
 _RECORD_STACK: list = []
@@ -111,12 +114,15 @@ def note_scope(name: str):
 
 
 def _note(kind: str, axes, tag: str, wire_elems: float,
-          itemsize: int = 4) -> None:
+          itemsize: int = 4, pairs=None) -> None:
     if _RECORD_STACK:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         tag = ":".join([s for s in _SCOPES if s] + [tag])
+        if pairs is not None:
+            pairs = tuple((int(s), int(d)) for s, d in pairs)
         _RECORD_STACK[-1].append(
-            CollectiveNote(kind, axes, tag, float(wire_elems), itemsize))
+            CollectiveNote(kind, axes, tag, float(wire_elems), itemsize,
+                           pairs))
 
 
 # --------------------------------------------------------------------------
@@ -291,7 +297,8 @@ def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis: str, perm, *,
 
 
 def _ppermute(x, mesh, axis, perm, tag):
-    _note("collective-permute", axis, tag, x.numel(), x.element_size())
+    _note("collective-permute", axis, tag, x.numel(), x.element_size(),
+          perm)
     me = axis_index(mesh, axis)
     group = mesh.get_group(axis)
     x = x.contiguous()

@@ -69,6 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.device import pin_fp32
 from repro_torch.dist.collectives import (SCHEDULES, axis_index, gather_axis,
                                           make_mesh, mesh_grid, ppermute,
                                           psum, psum_native, pvary,
@@ -258,15 +259,27 @@ def _local_conv(xl, wl, mesh, *, stride, plans, schedule):
 # --------------------------------------------------------------------------
 
 def _dx_local(gl, wg, *, stride):
-    """dIn of the local VALID conv: the transposed-kernel conv.  Stride 1
-    is a VALID conv of the edge-padded cotangent against the flipped,
-    O/I-swapped kernel and goes through the kernel dispatcher; a strided
-    conv dilates the cotangent (``conv_transpose2d``)."""
+    """dIn of the local VALID conv: the transposed-kernel conv.  At stride
+    1, where the dispatcher's plan for it is one of the port's kernels,
+    it is a VALID conv of the edge-padded cotangent against the flipped,
+    O/I-swapped kernel.  Where the plan is the library's conv, and at any
+    stride, it is ``conv_transpose2d``, which pads (and, strided, dilates)
+    inside its call: no padded copy of the cotangent is made."""
     kh, kw = wg.shape[2], wg.shape[3]
     if tuple(stride) == (1, 1):
-        gp = F.pad(gl, (kw - 1, kw - 1, kh - 1, kh - 1)).contiguous()
-        wt = wg.flip(2, 3).transpose(0, 1).contiguous()
-        return kops.local_conv2d(gp, wt, stride=(1, 1), padding="VALID")
+        n, k, h, w = gl.shape
+        padded = (n, k, h + 2 * (kh - 1), w + 2 * (kw - 1))
+        impl = kops.select_conv_impl(padded, (wg.shape[1], k, kh, kw),
+                                     (1, 1), "VALID", dtype=gl.dtype,
+                                     device=gl.device)
+        if impl != "xla":
+            gp = F.pad(gl, (kw - 1, kw - 1, kh - 1, kh - 1)).contiguous()
+            wt = wg.flip(2, 3).transpose(0, 1).contiguous()
+            return kops.local_conv2d(gp, wt, stride=(1, 1), padding="VALID")
+        if gl.is_cuda:
+            pin_fp32()
+        return F.conv_transpose2d(gl.float(), wg.float()).to(
+            torch.result_type(gl, wg))
     return F.conv_transpose2d(gl.float(), wg.float(), stride=stride)
 
 

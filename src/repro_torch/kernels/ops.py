@@ -45,7 +45,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import pin_fp32
+from repro_torch.device import pin_fp32, resolve_device
 from repro_torch.kernels import autotune
 from repro_torch.kernels.conv2d import conv2d
 from repro_torch.kernels.gemm_conv import conv2d_im2col
@@ -155,9 +155,11 @@ class _ConvKernel(torch.autograd.Function):
         else:
             lo_h = lo_w = 0
             xp = x
-        gp = F.pad(g, (kw - 1, kw - 1, kh - 1, kh - 1))
         wt = w.flip(2, 3).transpose(0, 1).contiguous()
-        dxp = local_conv2d(gp.contiguous(), wt, padding="VALID")
+        # the padded cotangent is a temporary of the call: it is released
+        # before dKer's operands are made
+        dxp = local_conv2d(F.pad(g, (kw - 1, kw - 1, kh - 1, kh - 1)),
+                           wt, padding="VALID")
         dx = dxp[:, :, lo_h:lo_h + x.shape[2], lo_w:lo_w + x.shape[3]] \
             if ctx.padding == "SAME" else dxp
         dw = local_conv2d(xp.transpose(0, 1).contiguous(),
@@ -246,10 +248,11 @@ def _run_matmul_impl(impl: str, x, w):
 
 
 def select_matmul_impl(m: int, n: int, k: int, *, dtype=torch.float32,
-                       device="cpu") -> str:
+                       device=None) -> str:
     """Winning matmul impl (``pallas`` | ``xla``) for the shape: the
     static paper plan (the kernel when the shape tiles) when the tuner is
-    off, the timed best-of on ``device`` otherwise."""
+    off, the timed best-of on ``device`` otherwise (the card unless the
+    caller asks for the CPU: resolved only when a key has to be timed)."""
     if not (_pallas_enabled() and pallas_applicable_matmul(m, n, k)):
         return "xla"
     if not autotune.enabled():
@@ -257,7 +260,8 @@ def select_matmul_impl(m: int, n: int, k: int, *, dtype=torch.float32,
     cands = [(name, functools.partial(_run_matmul_impl, name))
              for name in ("pallas", "xla")]
     return autotune.best_of(matmul_key(m, n, k, dtype), cands,
-                            lambda: _rand([(m, k), (k, n)], dtype, device))
+                            lambda: _rand([(m, k), (k, n)], dtype,
+                                          resolve_device(device)))
 
 
 def _run_wino_gemm_impl(impl: str, v, u):
@@ -295,8 +299,13 @@ def _xla_conv(x, w, stride, padding):
         pin_fp32()
     lo_h, hi_h, _ = pad_amounts(x.shape[2], w.shape[2], stride[0], padding)
     lo_w, hi_w, _ = pad_amounts(x.shape[3], w.shape[3], stride[1], padding)
-    xf = F.pad(x.float(), (lo_w, hi_w, lo_h, hi_h))
-    return F.conv2d(xf, w.float(), stride=stride).to(torch.result_type(x, w))
+    if lo_h == hi_h and lo_w == hi_w:  # the library pads; no padded copy
+        out = F.conv2d(x.float(), w.float(), stride=stride,
+                       padding=(lo_h, lo_w))
+    else:
+        out = F.conv2d(F.pad(x.float(), (lo_w, hi_w, lo_h, hi_h)),
+                       w.float(), stride=stride)
+    return out.to(torch.result_type(x, w))
 
 
 def _run_conv_impl(impl: str, x, w, stride, padding):
@@ -328,10 +337,11 @@ def conv_candidates(x_shape, w_shape, stride, padding) -> list:
 
 
 def select_conv_impl(x_shape, w_shape, stride, padding, *,
-                     dtype=torch.float32, device="cpu") -> str:
+                     dtype=torch.float32, device=None) -> str:
     """Winning conv impl (``direct`` | ``winograd`` | ``im2col`` |
     ``xla``) for the shape: the static paper plan when the tuner is off,
-    the timed best-of on ``device`` otherwise."""
+    the timed best-of on ``device`` otherwise (the card unless the caller
+    asks for the CPU: resolved only when a key has to be timed)."""
     stride = tuple(stride)
     cands = conv_candidates(x_shape, w_shape, stride, padding)
     if not autotune.enabled():
@@ -341,7 +351,8 @@ def select_conv_impl(x_shape, w_shape, stride, padding, *,
             for name in cands]
     return autotune.best_of(
         conv_key(x_shape, w_shape, dtype, stride, padding), menu,
-        lambda: _rand([tuple(x_shape), tuple(w_shape)], dtype, device))
+        lambda: _rand([tuple(x_shape), tuple(w_shape)], dtype,
+                      resolve_device(device)))
 
 
 def pad_amounts(size: int, k: int, s: int, pad):

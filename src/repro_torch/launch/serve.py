@@ -533,11 +533,9 @@ def run(cfg, *, requests: int = 8, prompt_len: int = 16, gen: int = 16,
         params = fns.init(torch.Generator().manual_seed(seed), cfg,
                           device=device)
     if grid == "auto":
-        import torch.distributed as dist
-
         from repro_torch.core.sharding_synthesis import synthesize_serve_grid
-        n_ranks = dist.get_world_size() if dist.is_initialized() else 1
-        grid = synthesize_serve_grid(cfg, n_ranks, slots=slots,
+        from repro_torch.dist.collectives import world_size
+        grid = synthesize_serve_grid(cfg, world_size(), slots=slots,
                                      max_seq=max_seq, schedule=schedule,
                                      minimize=minimize,
                                      mem_cap_elems=mem_cap_elems).grid

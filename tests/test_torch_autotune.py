@@ -307,6 +307,28 @@ def test_autotune_disabled_scope(tuner):
     assert autotune.enabled()
 
 
+@pytest.mark.parametrize("select", ["conv", "matmul"])
+def test_selector_without_device_never_times_on_cpu(tuner, select,
+                                                     monkeypatch):
+    """The public selectors' device defaults to the card: with the tuner
+    on and no ``device`` on a host without one, the timing pass raises
+    the device rule's error instead of timing on the CPU and persisting
+    that winner under a key that does not name the device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert autotune.enabled()
+    call = {"conv": lambda: ops.select_conv_impl(
+                (2, 8, 8, 8), (8, 8, 3, 3), (1, 1), "SAME"),
+            "matmul": lambda: ops.select_matmul_impl(16, 16, 16)}[select]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert not os.path.exists(tuner.path), "no plan table may be written"
+    assert tuner.lookup(ops.conv_key((2, 8, 8, 8), (8, 8, 3, 3),
+                                     torch.float32, (1, 1), "SAME")) is None
+    assert tuner.lookup(ops.matmul_key(16, 16, 16, torch.float32)) is None
+    with autotune.autotune_disabled():  # the static plan needs no device
+        assert call() == {"conv": "direct", "matmul": "pallas"}[select]
+
+
 def test_selected_dispatch_matches_reference(tuner):
     """Through ``local_conv2d`` with the tuner live: whatever wins, the
     numerics match XLA, and the key strings are the JAX package's."""

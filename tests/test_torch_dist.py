@@ -6,7 +6,8 @@ every case from the same numpy inputs, concurrently; each case is then a
 test of its own.  Outputs must agree to f32 ``atol=1e-4`` on unit-normal
 data (as ``tests/test_dist.py``), and on every rank the wire elements the
 port records for one op must equal the analytic ``conv_comm_elems`` /
-``matmul_comm_elems`` total of the JAX package.
+``matmul_comm_elems`` total of the JAX package.  dIn's local stride-1
+routes are held against ``jax.vjp`` in process.
 """
 
 import json
@@ -189,3 +190,34 @@ def test_matmul_distributed_matches_jax(runs, name, grid, sched):
 def test_halo_exchange_matches_jax(runs, name, grid, lo, hi):
     assert runs["port"][name].shape == runs["jax"][name].shape
     np.testing.assert_array_equal(runs["port"][name], runs["jax"][name])
+
+
+@pytest.mark.parametrize("c,route", [(3, "xla"), (8, "direct")])
+def test_dx_local_matches_jax_vjp(c, route):
+    """dIn of the local VALID conv on both of its stride-1 routes: the
+    library's transposed conv, which pads inside its call (C = 3, where
+    the static plan is the library's), and the direct kernel on the
+    padded cotangent (C = 8)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.dist.conv2d import _dx_local
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import autotune_disabled
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, c, 9, 10), dtype=np.float32)
+    w = rng.standard_normal((8, c, 3, 3), dtype=np.float32)
+    g = rng.standard_normal((2, 8, 7, 8), dtype=np.float32)
+    _, vjp = jax.vjp(lambda a: jax.lax.conv_general_dilated(
+        a, jnp.asarray(w), (1, 1), "VALID",
+        dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=jax.lax.Precision.HIGHEST), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    with autotune_disabled():
+        assert ops.select_conv_impl((2, 8, 11, 12), (c, 8, 3, 3), (1, 1),
+                                    "VALID") == route
+        got = _dx_local(torch.from_numpy(g), torch.from_numpy(w),
+                        stride=(1, 1))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

@@ -79,6 +79,31 @@ def test_core_is_pure_python():
     assert "grid" in proc.stdout
 
 
+def test_analysis_lints_are_pure_python():
+    """The verifier's lint modules (``astlint``, ``doclint``, ``collect``,
+    ``lints``) import neither torch nor jax: the AST and doc lints run
+    on the tree, and the extraction and a lint on hand-made notes."""
+    code = textwrap.dedent("""
+        import sys
+        for blocked in ("jax", "jaxlib", "repro", "torch"):
+            sys.modules[blocked] = None  # any import of them now fails
+        from repro_torch.analysis import astlint, collect, doclint, lints
+        ring = [(i, (i + 1) % 4) for i in range(4)]
+        note = ("collective-permute", ("r",), "ring_zip", 8.0, 4, ring)
+        colls = collect.extract_collectives(
+            [[note]] * 4, (("r", 4),), [{"r": r} for r in range(4)])
+        print(len(astlint.lint_tree(astlint.default_root())),
+              len(doclint.lint_tree(doclint.default_root())),
+              len(lints.lint_deadlock(colls, (("r", 4),), [note])),
+              colls[0].pairs == tuple(ring))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(_ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["0", "0", "0", "True"]
+
+
 def test_configs_are_pure_python():
     """The model configurations import without torch: no
     ``torch.distributed``, no kernel build."""
