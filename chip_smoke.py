@@ -207,7 +207,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU within ``LOSS_RTOL`` / ``GRAD_RTOL``; (e) ``python -m
    repro_torch.launch.train --mesh host --arch llama3.2-1b --steps 4
    --batch 8 --seq 64`` in a subprocess (full width, its own bf16,
-   dense), run beside (d): exit 0 and four finite losses;
+   dense), run beside (d): exit 0 and four finite losses; (f) the same
+   llama3.2-1b steps under ``mode="gspmd"`` on placed state
+   (``train.step.place_gspmd``): a one-rank ``("data", "model")`` =
+   (1, 1) mesh, every parameter and AdamW moment a DTensor placed by
+   ``parallel.sharding.param_specs``, the batch by ``batch_specs``; each
+   step's loss within ``LOSS_RTOL`` of the dense run's, the step-1
+   gradients within ``GRAD_RTOL``, no kernel launched (the dense LM
+   path runs none in either package) and no collective
+   (``CommDebugMode``, over step 1) on one rank, in ``LM_GSPMD_STEPS``
+   steps; the later step's time and peak printed beside dense's
+   (``{"phase": "lm_train_gspmd", ...}``); (g) host only, the
+   decisions ``param_specs`` makes for llama3.2-1b and granite-moe at
+   full width on ``(1, 4)`` and ``(2, 2)`` meshes under the card's own
+   memory, printed;
 12. the schedule verifier (``repro_torch.analysis``): the AST lint and
    the doc lint on the tree (no jax needed), zero findings; then
    ``analysis.verify.run_specs`` on one rank (nccl, world 1), the static
@@ -315,6 +328,7 @@ XLSTM_TF_PROMPT = 2
 # phase 11: LM training, llama3.2-1b at full width and depth in float32
 LM_TRAIN_ARCH = "llama3.2-1b"
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 64, 3
+LM_GSPMD_STEPS = 2   # phase 11 (f): the first under CommDebugMode
 LM_TRAIN_LR = 1e-3
 FLASH_SEQ = 4096   # above the flash threshold: S * S > 2048 ** 2
 # phase 12: the schedule verifier, each cell in every schedule
@@ -2685,7 +2699,9 @@ def _lm_train_rank(rank):
         out["step1_loss"] = {"grid": loss_g, "dense": loss_d}
         out["step1_grad_rel_err"] = _grad_rel(grads_g, grads_d)
         out["grad_tensors"] = len(grads_g)
-        del grads_g, grads_d
+        del grads_g
+        torch.cuda.empty_cache()
+        out["gspmd"] = _lm_gspmd(cfg, params, batch, grads_d, device)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state, step, grid = _lm_train_steps(cfg, params, batch, mesh,
@@ -2720,6 +2736,98 @@ def _lm_train_rank(rank):
     out["transposes_alone_device_ms"] = transpose_ms
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+def _lm_gspmd(cfg, params, batch, grads_d, device):
+    """Phase 11 (f): ``mode="gspmd"`` on placed state.  A one-rank
+    ``("data", "model")`` = (1, 1) mesh, every parameter and AdamW moment
+    a DTensor placed by ``parallel.sharding.param_specs``
+    (``train.step.place_gspmd``), the batch by ``batch_specs``: the
+    step-1 gradients against the dense ones (``grads_d``, a list this
+    function empties once compared) and ``LM_GSPMD_STEPS`` steps, each
+    with its kernels' launches.  The first step runs under
+    ``CommDebugMode`` (its collectives counted; the mode sees every op,
+    so that step's time is printed apart), the later ones without it
+    (their p50 and peak); one more step profiled (device-busy against
+    wall)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.models.layers import set_attention_mesh
+    from repro_torch.models.lm import loss_lm
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import (_value_and_grad, init_train_state,
+                                        make_train_step, place_gspmd)
+
+    t0 = time.perf_counter()
+    mesh = C.make_mesh((1, 1), ("data", "model"), device=device)
+    opt = AdamW(lr=LM_TRAIN_LR)
+    pl = place_gspmd(cfg, mesh, init_train_state(params, opt), batch)
+    state, pbatch = pl.state, pl.place_batch(batch)
+    out = {"place_s": time.perf_counter() - t0,
+           "placed": all(C.is_placed(t) for t in pytree.tree_leaves(
+               (state.params, state.opt.m, state.opt.v))),
+           "decisions": pl.decisions, "dp_all": pl.dp_all}
+    del pl
+    loss_fn = lambda p, b: loss_lm(p, cfg, b)  # noqa: E731
+    step = make_train_step(loss_fn, opt)
+    steps = []
+
+    def timed_step(state):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, pbatch)
+        loss = float(metrics["loss"])
+        steps.append((loss, (time.perf_counter() - t1) * 1e3,
+                      _launch_counts()))
+        return state
+
+    try:
+        _zero_counts()
+        _, grads = _value_and_grad(loss_fn, state.params, pbatch, True)
+        out["grad_pass_launches"] = _launch_counts()
+        out["step1_grad_rel_err"] = _grad_rel(
+            [C.local_part(g) for g in pytree.tree_leaves(grads)], grads_d)
+        del grads
+        grads_d.clear()
+        torch.cuda.empty_cache()
+        with C.count_collectives() as comm:
+            state = timed_step(state)
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(LM_GSPMD_STEPS - 1):
+            state = timed_step(state)
+        peak = torch.cuda.max_memory_allocated()
+        out["profile"] = _profile(lambda: step(state, pbatch), 1,
+                                  "train_steps")
+        del state
+    finally:
+        set_attention_mesh(None)
+    out.update(steps=steps, collectives=comm, peak_allocated_bytes=peak,
+               phase_s=time.perf_counter() - t0)
+    return out
+
+
+def _sharding_decisions(device):
+    """Phase 11 (g), host only: the decisions ``param_specs`` makes for
+    llama3.2-1b and granite-moe at full width on ``(1, 4)`` and ``(2, 2)``
+    ``("data", "model")`` meshes at this phase's tokens per step, under
+    the card's own memory (``device_budget``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import sharding as shd
+
+    hbm_bytes, mem_elems = shd.device_budget(device)
+    out = {"hbm_bytes": hbm_bytes}
+    for arch in (LM_TRAIN_ARCH, "granite-moe-1b-a400m"):
+        cfg = get_config(arch)
+        shapes = shd.param_shapes(cfg)
+        for grid in ((1, 4), (2, 2)):
+            shd.param_specs(cfg, shapes, {"data": grid[0], "model": grid[1]},
+                            tokens_per_step=LM_TRAIN_BATCH * LM_TRAIN_SEQ,
+                            hbm_bytes=hbm_bytes, mem_elems=mem_elems)
+            out[f"{arch} {grid[0]}x{grid[1]}"] = dict(
+                shd.param_specs.last_decisions)
     return out
 
 
@@ -2895,8 +3003,33 @@ def lm_train_phase(card):
         cli = _lm_cli_finish(cli)
     flash = _flash_on_card(device)
     kernel_rows, kernel_step = _lm_train_kernel_rows(cfg, device)
+    decisions = _sharding_decisions(device)
     phase_s = time.perf_counter() - t_phase
     grid, dense = r["grid"], r["dense"]
+    gspmd = r["gspmd"]
+    print(json.dumps({
+        "phase": "lm_train_gspmd", "card": card, "arch": LM_TRAIN_ARCH,
+        "torch": torch.__version__, "mesh": {"data": 1, "model": 1},
+        "placed": gspmd["placed"], "decisions": gspmd["decisions"],
+        "dp_all": gspmd["dp_all"],
+        "losses": [s[0] for s in gspmd["steps"]],
+        "dense_losses": [s[0] for s in dense],
+        "step_ms": [s[1] for s in gspmd["steps"]],
+        "step1_under_comm_debug_mode": True,
+        "p50_step_ms": statistics.median(s[1] for s in gspmd["steps"][1:]),
+        "dense_p50_step_ms": statistics.median(s[1] for s in dense),
+        "dense_p50_step_ms_steps_2_on": statistics.median(
+            s[1] for s in dense[1:]),
+        "peak_allocated_bytes": gspmd["peak_allocated_bytes"],
+        "dense_peak_allocated_bytes": r["dense_peak_allocated_bytes"],
+        "step1_grad_rel_err": gspmd["step1_grad_rel_err"],
+        "launches": gspmd["grad_pass_launches"],
+        "launches_per_step": [s[2] for s in gspmd["steps"]],
+        "collectives": gspmd["collectives"],
+        "device_busy_ms_per_step": gspmd["profile"]["device_busy_ms"],
+        "profiled_step_wall_ms": gspmd["profile"]["wall_ms"],
+        "place_s": gspmd["place_s"], "gspmd_s": gspmd["phase_s"],
+        "sharding_decisions": decisions}), flush=True)
     p50 = statistics.median(s[1] for s in grid)
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
     prof = r["profile"]
@@ -2964,7 +3097,23 @@ def lm_train_phase(card):
               f"{arch} smoke loss, card vs CPU: {e}")
     check(len(cli["losses"]) == 4 and all(np.isfinite(cli["losses"])),
           f"launch.train --mesh host losses {cli['losses']}")
+    check(gspmd["placed"], "the gspmd state is not placed")
+    for i, ((lg, _, _), (ld, _, _)) in enumerate(zip(gspmd["steps"],
+                                                      dense)):
+        check(abs(lg - ld) <= LOSS_RTOL * abs(ld),
+              f"llama train step {i + 1}: gspmd loss {lg} vs dense {ld}")
+    check(gspmd["step1_grad_rel_err"] <= GRAD_RTOL,
+          f"llama step-1 gradients, gspmd vs dense: "
+          f"{gspmd['step1_grad_rel_err']:.3e} > {GRAD_RTOL}")
+    gspmd_launches = [gspmd["grad_pass_launches"]] + [
+        s[2] for s in gspmd["steps"]]
+    check(all(not any(c.values()) for c in gspmd_launches),
+          f"the gspmd run launched a kernel: {gspmd_launches}")
+    check(gspmd["collectives"]["total"] == 0,
+          f"the one-rank gspmd run issued collectives: "
+          f"{gspmd['collectives']}")
     return ({name: sum(s[2][name] for s in grid) for name in want},
+            {name: sum(c[name] for c in gspmd_launches) for name in want},
             kernel_rows, kernel_step)
 
 
@@ -3168,7 +3317,8 @@ def main() -> int:
                       static, resilient_ms, serve_stats)
     zoo, _ = zoo_phase(card)
     _clock("perf, zoo")
-    train_lm, train_lm_rows, train_lm_step = lm_train_phase(card)
+    train_lm, train_lm_gspmd, train_lm_rows, train_lm_step = \
+        lm_train_phase(card)
     rows["matmul"] += train_lm_rows
     _clock("lm_train")
     verified = verify_phase(card)
@@ -3181,7 +3331,9 @@ def main() -> int:
                   "train_resilient": resilient[name],
                   "warm": warm[name], "perf": perf[name],
                   "zoo": zoo[name],
-                  "train_lm": train_lm[name], "verify": verified[name]}
+                  "train_lm": train_lm[name],
+                  "train_lm_gspmd": train_lm_gspmd[name],
+                  "verify": verified[name]}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts
 

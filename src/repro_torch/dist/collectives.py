@@ -669,3 +669,201 @@ def scatter_axis(x, mesh: DeviceMesh, axis: str, *, dim: int,
     if schedule in ("ring", "ring2"):
         return ring_reduce_scatter(x, mesh, axis, dim=dim)
     return psum_scatter(x, mesh, axis, dim=dim, tag="scatter_axis")
+
+
+# --------------------------------------------------------------------------
+# Placements: the GSPMD mode's DTensors
+# --------------------------------------------------------------------------
+#
+# The reference's ``gspmd`` mode annotates arrays with ``PartitionSpec``s
+# and leaves the collectives to XLA.  Its counterpart here is a DTensor
+# placed by the same spec; DTensor's sharding propagation issues the
+# collectives.  These wrappers are the one place that touches
+# ``torch.distributed.tensor``.  A spec entry naming several axes shards
+# its dim over them major first, which DTensor lays out as JAX does only
+# when the axes come in the mesh's order: another order is refused.
+
+def _mesh_dim_names(mesh: DeviceMesh) -> tuple:
+    return tuple(mesh.mesh_dim_names)
+
+
+def placements(mesh: DeviceMesh, spec) -> list:
+    """The DTensor placements (one per mesh dim) of ``spec``: ``Shard(d)``
+    on every mesh dim that dim ``d``'s entry names, ``Replicate()``
+    elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = _mesh_dim_names(mesh)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(spec):
+        axes = _spec_axes(entry)
+        idx = [names.index(a) if a in names else -1 for a in axes]
+        if -1 in idx:
+            raise ValueError(f"spec {spec} names an axis the mesh {names} "
+                             f"lacks")
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} must list its axes in the "
+                             f"mesh's order {names}")
+        for i in idx:
+            if not out[i].is_replicate():
+                raise ValueError(f"axis {names[i]} shards two dims of "
+                                 f"{spec}")
+            out[i] = Shard(dim)
+    return out
+
+
+def is_placed(t) -> bool:
+    """True for a DTensor (a tensor placed on a mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def spec_of(t) -> tuple:
+    """The spec of a DTensor's placements (the inverse of
+    :func:`placements`); a pending sum (``Partial``) has none."""
+    names = _mesh_dim_names(t.device_mesh)
+    entries = [[] for _ in range(t.dim())]
+    for i, p in enumerate(t.placements):
+        if p.is_partial():
+            raise ValueError(f"{t.placements} holds a pending sum")
+        if p.is_shard():
+            entries[p.dim].append(names[i])
+    return tuple(None if not e else e[0] if len(e) == 1 else tuple(e)
+                 for e in entries)
+
+
+def place(t: torch.Tensor, mesh: DeviceMesh, spec):
+    """``t`` (the whole tensor, the same on every rank) as a DTensor placed
+    by ``spec``: each rank keeps its block (:func:`shard`'s), no
+    collective runs."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(_slice(t.detach(), mesh, spec), mesh,
+                              placements(mesh, spec), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank; a plain tensor itself."""
+    return t.to_local() if is_placed(t) else t
+
+
+def split_local(t, n: int) -> list:
+    """A placed batch leaf cut into ``n`` pieces along dim 0 of each
+    rank's block (dim 0 must be the batch dim and not be split by the
+    other dims' placements), each placed as ``t``."""
+    from torch.distributed.tensor import DTensor
+    if t.to_local().shape[0] % n:
+        raise ValueError(f"{n} microbatches do not split this rank's "
+                         f"{t.to_local().shape[0]} rows")
+    shape = list(t.shape)
+    shape[0] //= n
+    return [DTensor.from_local(b, t.device_mesh, t.placements,
+                               run_check=False, shape=torch.Size(shape),
+                               stride=_contiguous_stride(shape))
+            for b in t.to_local().chunk(n)]
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(list(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _note_redistribute(x, dst, tag: str) -> None:
+    """The collectives a redistribution from ``x.placements`` to ``dst``
+    issues, mesh dim by mesh dim, by the wire model of the module's
+    docstring (an all-to-all ``v * (g - 1) / g``)."""
+    if not _RECORD_STACK:
+        return
+    names = _mesh_dim_names(x.device_mesh)
+    v, size = x.to_local().numel(), x.element_size()
+    for i, (a, b) in enumerate(zip(x.placements, dst)):
+        g = x.device_mesh.size(i)
+        if a == b or g == 1:
+            continue
+        if a.is_partial():
+            if b.is_replicate():
+                _note("all-reduce", names[i], tag, 2.0 * v * (g - 1) / g,
+                      size)
+            elif b.is_shard():
+                _note("reduce-scatter", names[i], tag, v * (g - 1) / g,
+                      size)
+                v //= g
+        elif a.is_shard():
+            if b.is_replicate():
+                _note("all-gather", names[i], tag, v * (g - 1), size)
+                v *= g
+            elif b.is_shard():
+                _note("all-to-all", names[i], tag, v * (g - 1) / g, size)
+        elif b.is_shard():
+            v //= g
+
+
+def constrain(x, mesh: DeviceMesh, spec, *, tag: str):
+    """``x`` redistributed to ``spec`` -- what ``with_sharding_constraint``
+    is to GSPMD -- its collectives noted under ``gspmd_<tag>``.  ``x``
+    must be a DTensor on ``mesh``: a pin never passes a plain tensor by."""
+    if not is_placed(x):
+        raise TypeError(f"the gspmd pin {tag!r} got a plain tensor; place "
+                        f"the state with train.step.place_gspmd")
+    dst = placements(mesh, spec)
+    if tuple(dst) == tuple(x.placements):
+        return x
+    _note_redistribute(x, dst, "gspmd_" + tag)
+    return x.redistribute(mesh, dst)
+
+
+def constrain_like(x, ref, *, tag: str):
+    """``x`` (a DTensor) redistributed to the placements of ``ref``."""
+    if tuple(x.placements) == tuple(ref.placements):
+        return x
+    _note_redistribute(x, ref.placements, "gspmd_" + tag)
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def local_map(fn, mesh: DeviceMesh, in_specs, out_spec):
+    """``fn`` run on each rank's blocks: its DTensor arguments must be
+    placed by ``in_specs`` (``None`` for an argument that is not a
+    tensor), and its one output is placed by ``out_spec``.
+    Differentiable: autograd flows through ``fn``'s own backward (an
+    ``autograd.Function`` runs on plain blocks)."""
+    from torch.distributed.tensor.experimental import local_map as _lm
+    return _lm(fn, out_placements=placements(mesh, out_spec),
+               in_placements=tuple(None if s is None
+                                   else placements(mesh, s)
+                                   for s in in_specs),
+               device_mesh=mesh)
+
+
+def full_tensor(x, *, tag: str = "gspmd_gather") -> torch.Tensor:
+    """The whole tensor on every rank (an all-gather, or the sum of a
+    pending ``Partial``, noted under ``tag``); a plain tensor itself."""
+    if not is_placed(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    _note_redistribute(x, [Replicate()] * len(x.placements), tag)
+    return x.full_tensor()
+
+
+def replicated_region():
+    """A context in which a plain tensor meeting a DTensor counts as
+    replicated on every rank (the model's masks, positions and
+    constants, which every rank builds alike)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Yields a dict filled on exit with ``{collective op name: count}`` of
+    every collective the DTensors inside issued (``CommDebugMode``), and
+    ``"total"``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    counts: dict = {}
+    mode = CommDebugMode()
+    with mode:
+        yield counts
+    counts.update({str(k): int(v)
+                   for k, v in mode.get_comm_counts().items()})
+    counts["total"] = int(mode.get_total_counts())

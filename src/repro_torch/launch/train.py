@@ -5,14 +5,19 @@ behind ``--mesh``:
   pipeline (``data/pipeline.py``, prefetched on a thread), the train step
   (``train/step.py``, ``mode="gspmd"``, AdamW under a cosine schedule),
   checkpoints every ``--ckpt-every`` steps, the straggler monitor, and a
-  SIGTERM save.  On one rank the reference's host mesh is the identity;
-  more than one rank needs the reference's GSPMD sharding
-  (``parallel/sharding.py``), which the port has not yet, so it raises.
-  Two deliberate differences from the reference: a periodic checkpoint
-  is labelled with the steps it has taken (the reference labels it with
-  the loop index of its last step, so a resume from it repeats that
-  step), and a SIGTERM ends the run after the emergency save at the next
-  step boundary (the reference's handler returns and training goes on).
+  SIGTERM save.  On one rank the reference's host mesh is the identity
+  and the state stays plain.  ``--ranks N`` starts N ranks through
+  ``dist.spawn.run_spmd`` on the reference's host mesh ``(N, 1)`` over
+  ``("data", "model")``: the state is placed by the GSPMD rules
+  (``parallel/sharding.py``, ``train.step.place_gspmd``), each rank feeds
+  its block of the pipeline's global batch, and checkpoints hold whole
+  tensors, so any rank count resumes them.  A model axis above 1 is
+  reached through the Python API, as the reference's.  Two deliberate
+  differences from the reference: a periodic checkpoint is labelled with
+  the steps it has taken (the reference labels it with the loop index of
+  its last step, so a resume from it repeats that step), and a SIGTERM
+  ends the run after the emergency save at the next step boundary (the
+  reference's handler returns and training goes on).
   ``--fault-plan`` fires its ``sigterm`` faults at the ``step`` point.
 * ``--mesh dist-grid``: the CNN on the explicit ``(Pb,Ph,Pw,Pk,Pc)`` grid
   through ``dist/train.py::make_resilient_train_loop``: the grid is
@@ -35,6 +40,9 @@ CPU-scale runs::
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --device cpu --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/lm
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --device cpu --ranks 2 --steps 20 --batch 8 --seq 64
+
   PYTHONPATH=src python -m repro_torch.launch.train --mesh dist-grid \\
       --ranks 8 --device cpu --steps 20 --batch 8 --ckpt-dir /tmp/ckpt \\
       --fault-plan '{"faults": [{"kind": "sigterm", "step": 12}]}'
@@ -51,10 +59,6 @@ from typing import Dict
 
 import torch
 from torch.utils import _pytree as pytree
-
-HOST_RANKS_LATER = ("--mesh host on more than one rank shards the LM by the "
-                    "reference's GSPMD specs (parallel/sharding.py), which "
-                    "the port has not yet (ROADMAP Queue 1 item 3(e))")
 
 
 def _load_fault_plan(spec: str):
@@ -136,31 +140,60 @@ def _main_dist_grid(args) -> Dict:
 
 
 def _main_host(args) -> Dict:
-    """The dense LM trainer on one rank; returns the report: each step's
-    loss, the first and the end step, and whether a SIGTERM ended it."""
+    """The dense LM trainer: in this process on one rank, else on
+    ``--ranks`` ranks started by ``dist.spawn.run_spmd``; rank 0's
+    report."""
+    if args.ranks > 1:
+        from repro_torch.device import resolve_device
+        from repro_torch.dist.spawn import run_spmd
+        device = resolve_device(args.device)
+        return run_spmd(_host_rank, args.ranks, vars(args),
+                        device=device.type)[0]
+    return _host_loop(args)
+
+
+def _host_rank(rank: int, args: Dict) -> Dict:
+    return _host_loop(argparse.Namespace(**args))
+
+
+def _host_loop(args) -> Dict:
+    """The dense LM trainer on this rank; returns the report: each step's
+    loss, the first and the end step, and whether a SIGTERM ended it.
+
+    On more than one rank the state is placed on the reference's host
+    mesh ``(ranks, 1)`` over ``("data", "model")`` by
+    ``train.step.place_gspmd`` and each rank feeds its block of the
+    pipeline's global batch.  Checkpoints hold whole tensors (gathered on
+    every rank, written by rank 0), so a resume does not depend on the
+    writer's rank count.  The SIGTERM handler only raises a flag there;
+    a one-int vote (``collectives.any_rank``) stops every rank at the
+    same step, as a straggler's checkpoint is voted."""
     from repro_torch.ckpt.checkpointer import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import (DataConfig, Prefetcher,
                                            SyntheticTokens, to_torch)
     from repro_torch.device import resolve_device
+    from repro_torch.dist import collectives as C
     from repro_torch.fault.inject import FaultInjector
     from repro_torch.fault.monitor import EmergencySaver, StragglerMonitor
     from repro_torch.models.api import model_fns
+    from repro_torch.models.layers import set_attention_mesh
     from repro_torch.train.optim import AdamW, cosine_schedule
-    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        place_gspmd)
 
-    if args.ranks > 1:
-        raise NotImplementedError(HOST_RANKS_LATER)
     device = resolve_device(args.device)
+    ranks, rank = C.world_size(), C.world_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
     fns = model_fns(cfg)
-    print(f"[train] {cfg.arch_id} ({'smoke' if args.smoke else 'full'}) "
-          f"ranks=1 device={device.type} dtype={cfg.dtype}", flush=True)
+    say(f"[train] {cfg.arch_id} ({'smoke' if args.smoke else 'full'}) "
+        f"ranks={ranks} device={device.type} dtype={cfg.dtype}", flush=True)
 
     params = fns.init(torch.Generator(device=device).manual_seed(0), cfg,
                       device=device)
     n_params = sum(p.numel() for p in pytree.tree_leaves(params))
-    print(f"[train] {n_params / 1e6:.2f}M params", flush=True)
+    say(f"[train] {n_params / 1e6:.2f}M params", flush=True)
 
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=20, total=args.steps))
     state = init_train_state(params, opt)
@@ -174,21 +207,39 @@ def _main_host(args) -> Dict:
         restored, step = mgr.restore_latest(state, device=device)
         if restored is not None:
             state, start = restored, step
-            print(f"[train] resumed from step {step}", flush=True)
-
-    saver = None
-    if mgr:
-        saver = EmergencySaver(
-            lambda: (mgr.wait(), mgr.save(state, int(state.opt.step)))
-        ).install()
-    plan = _load_fault_plan(args.fault_plan)
-    injector = FaultInjector(plan) if plan is not None else None
+            say(f"[train] resumed from step {step}", flush=True)
 
     data_cfg = DataConfig(global_batch=args.batch, seq_len=args.seq,
                           vocab=cfg.vocab,
                           frames=cfg.family == "encdec",
                           d_model=cfg.d_model,
                           positions3d=cfg.family == "vlm")
+    placement = None
+    if ranks > 1:
+        mesh = C.make_mesh((ranks, 1), ("data", "model"), device=device)
+        placement = place_gspmd(
+            cfg, mesh, state,
+            to_torch(SyntheticTokens(data_cfg).batch_at(start), device))
+        state = placement.state
+        say(f"[train] mesh={{'data': {ranks}, 'model': 1}}", flush=True)
+
+    def whole(st):
+        return pytree.tree_map(C.full_tensor, st) if placement else st
+
+    def save(step: int, async_: bool = False) -> None:
+        full = whole(state)          # a collective: every rank gathers
+        if rank == 0:
+            mgr.save(full, step, async_=async_)
+
+    saver = None
+    if mgr:
+        saver = EmergencySaver(
+            (lambda: None) if placement else
+            (lambda: (mgr.wait(), mgr.save(state, int(state.opt.step))))
+        ).install()
+    plan = _load_fault_plan(args.fault_plan)
+    injector = FaultInjector(plan) if plan is not None else None
+
     pf = Prefetcher(SyntheticTokens(data_cfg), start_step=start)
     monitor = StragglerMonitor()
     losses, preempted, end = [], False, start
@@ -196,44 +247,61 @@ def _main_host(args) -> Dict:
         t_last = time.time()
         for step in range(start, args.steps):
             if injector is not None:
-                injector.fire("step", step, {"ckpt_root": args.ckpt_dir})
-            if saver is not None and saver.triggered:
+                injector.fire("step", step, {"ckpt_root": args.ckpt_dir,
+                                             "rank": rank})
+            stop = saver is not None and saver.triggered
+            if placement is not None and saver is not None:
+                stop = C.any_rank(stop, device=device)
+                if stop:
+                    if rank == 0:
+                        mgr.wait()
+                    save(int(state.opt.step))
+            if stop:
                 preempted = True
-                print(f"[train] preempted at step {step} (emergency "
-                      f"checkpoint committed)", flush=True)
+                say(f"[train] preempted at step {step} (emergency "
+                    f"checkpoint committed)", flush=True)
                 break
             batch = to_torch(pf.next(), device)
+            if placement is not None:
+                batch = placement.place_batch(batch)
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             losses.append(loss)
             end = step + 1
             dt = time.time() - t_last
             t_last = time.time()
-            if monitor.observe(step, dt):
-                print(f"[fault] persistent straggling at step {step} "
-                      f"(ema {monitor.stats.ema:.3f}s) — checkpointing",
-                      flush=True)
+            straggling = monitor.observe(step, dt)
+            if placement is not None:
+                straggling = C.any_rank(straggling, device=device,
+                                        tag="straggler_vote")
+            if straggling:
+                say(f"[fault] persistent straggling at step {step} "
+                    f"(ema {monitor.stats.ema:.3f}s) — checkpointing",
+                    flush=True)
                 if mgr:
-                    mgr.save(state, int(state.opt.step), async_=True)
+                    save(int(state.opt.step), async_=True)
                 monitor.consecutive = 0
             if step % args.log_every == 0:
-                print(f"step {step:5d} loss {loss:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"dt {dt*1e3:.0f}ms", flush=True)
+                say(f"step {step:5d} loss {loss:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} "
+                    f"dt {dt*1e3:.0f}ms", flush=True)
             if mgr and step and step % args.ckpt_every == 0:
-                mgr.save(state, int(state.opt.step), async_=True)
+                save(int(state.opt.step), async_=True)
         if mgr and not preempted:
-            mgr.wait()
-            mgr.save(state, args.steps)
-            print(f"[train] final checkpoint at {args.steps}", flush=True)
+            if rank == 0:
+                mgr.wait()
+            save(args.steps)
+            say(f"[train] final checkpoint at {args.steps}", flush=True)
     finally:
         pf.close()
         if mgr:
             mgr.wait()
         if saver:
             saver.uninstall()
+        if placement is not None:
+            set_attention_mesh(None)
     if losses:
-        print(f"[train] done: final loss {losses[-1]:.4f}", flush=True)
+        say(f"[train] done: final loss {losses[-1]:.4f}", flush=True)
     return {"losses": losses, "start_step": start, "end_step": end,
             "preempted": preempted}
 
@@ -275,7 +343,8 @@ def main(argv=None):
     ap.add_argument("--fault-log", default="",
                     help="JSON-lines FaultEvent log path (rank 0)")
     ap.add_argument("--ranks", type=int, default=0,
-                    help="ranks to start (host: 1; dist-grid: default one "
+                    help="ranks to start (host: default 1, N ranks on the "
+                         "(N, 1) data x model mesh; dist-grid: default one "
                          "per card, or 1 on the CPU)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (gloo ranks)")

@@ -17,11 +17,15 @@ parameter's key (``"wq"``, ``"w_up"``, ...), which ``dist.lm`` uses to tag
 each routed projection's collectives; the reference's hook takes
 ``(x, w)``.
 
-Not here, by design: the reference's GSPMD sharding pins
-(``set_attention_mesh``, ``_shard_heads``, ``replicate_model``,
-``shard_residual``) annotate tensors for its ``gspmd`` mode on more than
-one device; on one rank they are the identity, and they come with the
-port of ``parallel/sharding.py``.
+The GSPMD pins (``set_attention_mesh``, ``_shard_heads``,
+``replicate_model``, ``shard_residual``) are the reference's sharding
+constraints of its ``gspmd`` mode: once ``train.step.place_gspmd`` has set
+a mesh, each redistributes a DTensor to its spec
+(``dist.collectives.constrain``); without a mesh each is the identity.
+Under a pinned mesh the flash branch of :func:`attention_core` expands
+k/v, pins q/k/v heads over the model axis and runs
+:class:`_FlashAttention` on each rank's blocks
+(``dist.collectives.local_map``).
 """
 
 from __future__ import annotations
@@ -38,7 +42,10 @@ def _init(generator: torch.Generator, shape, scale=None,
           dtype=torch.float32, device=None) -> torch.Tensor:
     """Normal draws from ``generator`` (on its own device) times
     ``scale`` (default ``shape[0] ** -0.5``, as the reference), as
-    ``dtype`` on ``device``."""
+    ``dtype`` on ``device``.  On the ``meta`` device nothing is drawn:
+    the tensor has a shape and no storage."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else shape[0] ** -0.5
     t = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
@@ -345,17 +352,136 @@ def make_mask(sq: int, sk: int, *, causal: bool, window=0, offset: int = 0,
     return m[None, None]
 
 
+# Attention-internal sharding pins, set by ``train.step.place_gspmd``
+# (the identity otherwise).  The reference pins the GQA-expanded k/v
+# head-sharded because GSPMD's propagation through the repeat falls back
+# to full replication; here the pins also give the flash branch the
+# placements its per-rank blocks are computed under.
+_ATTN_MESH = {"mesh": None, "dp": ()}
+
+
+def set_attention_mesh(mesh, dp_axes=("pod", "data")):
+    """Pin the attention, residual and MoE dispatch tensors to ``mesh``
+    (a ``DeviceMesh``, or an ``{axis: extent}`` mapping for the specs
+    alone), the batch over the ``dp_axes`` of extent > 1; ``None``
+    unpins."""
+    from repro_torch.parallel.sharding import mesh_shape
+    shape = mesh_shape(mesh) if mesh is not None else {}
+    _ATTN_MESH["mesh"] = mesh
+    _ATTN_MESH["dp"] = tuple(a for a in dp_axes if shape.get(a, 1) > 1)
+
+
+def _mesh_size(axis: str) -> int:
+    from repro_torch.parallel.sharding import mesh_shape
+    return mesh_shape(_ATTN_MESH["mesh"]).get(axis, 1)
+
+
+def _model_free() -> bool:
+    """True when the model axis is NOT already carrying batch (pure-DP
+    regimes fold it into dp)."""
+    return "model" not in _ATTN_MESH["dp"]
+
+
+def _dp_size() -> int:
+    return math.prod(_mesh_size(a) for a in _ATTN_MESH["dp"])
+
+
+def _b_spec(batch: int):
+    dp = _ATTN_MESH["dp"]
+    if dp and batch % _dp_size() == 0:
+        return dp if len(dp) > 1 else dp[0]
+    return None
+
+
+def _heads_spec(shape, batch_sharded: bool = True) -> tuple:
+    """The pin of [B, S, H, D]: (dp, None, model, None) where divisible."""
+    m = _mesh_size("model")
+    h_spec = "model" if (m > 1 and shape[2] % m == 0
+                         and _model_free()) else None
+    return (_b_spec(shape[0]) if batch_sharded else None, None, h_spec,
+            None)
+
+
+def _replicate_spec(shape) -> tuple:
+    """Batch over the data axes, replicated over the model axis."""
+    return (_b_spec(shape[0]),) + (None,) * (len(shape) - 1)
+
+
+def _residual_spec(shape) -> tuple:
+    """[B, S, d]: batch over data, the sequence over model."""
+    m = _mesh_size("model")
+    s_spec = "model" if (m > 1 and shape[1] % m == 0
+                         and _model_free()) else None
+    return (_b_spec(shape[0]), s_spec, None)
+
+
+def _pin(x: torch.Tensor, spec: tuple, tag: str) -> torch.Tensor:
+    from repro_torch.dist.collectives import constrain
+    return constrain(x, _ATTN_MESH["mesh"], spec, tag=tag)
+
+
+def _shard_heads(x: torch.Tensor, batch_sharded: bool = True
+                 ) -> torch.Tensor:
+    """Constrain [B, S, H, D] to (dp, None, model, None) when divisible."""
+    if _ATTN_MESH["mesh"] is None:
+        return x
+    return _pin(x, _heads_spec(x.shape, batch_sharded), "heads")
+
+
+def replicate_model(x: torch.Tensor) -> torch.Tensor:
+    """Pin a tensor to batch-over-data, replicated over the model axis
+    (the reference's pin around tiny sequential recurrences, where any
+    model-axis sharding costs a per-timestep psum)."""
+    if _ATTN_MESH["mesh"] is None or x.dim() < 2:
+        return x
+    return _pin(x, _replicate_spec(x.shape), "replicate_model")
+
+
+def shard_residual(x: torch.Tensor) -> torch.Tensor:
+    """Sequence-shard the residual stream [B, S, d] over the model axis
+    (the Megatron-SP analogue): per-block psums become reduce-scatters
+    and norms run on 1/TP of the tokens.  The identity without a pinned
+    mesh or unless x is [B, S, d]."""
+    if _ATTN_MESH["mesh"] is None or x.dim() != 3:
+        return x
+    return _pin(x, _residual_spec(x.shape), "residual")
+
+
+def _pinned_flash(q, k, v, window, causal, scale, q_chunk, k_chunk):
+    """The flash branch under a pinned mesh: q and the GQA-expanded k/v
+    pinned heads-over-model (batch-only where the heads do not divide),
+    :class:`_FlashAttention` run on each rank's blocks, whose heads and
+    batch rows are independent."""
+    from repro_torch.dist.collectives import local_map
+    n_rep = q.shape[2] // k.shape[2]
+    q = _shard_heads(q)
+    k = _shard_heads(_repeat_kv(k, n_rep))
+    v = _shard_heads(_repeat_kv(v, n_rep))
+    spec = _heads_spec(q.shape)
+
+    def local(ql, kl, vl):
+        return flash_attention(ql, kl, vl, window, causal, scale, q_chunk,
+                               k_chunk)
+
+    out = local_map(local, _ATTN_MESH["mesh"], (spec, spec, spec),
+                    spec)(q, k, v)
+    return _shard_heads(out)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, window=0, scale: float) -> torch.Tensor:
     """Dense vs flash attention by live-memory footprint (the reference's
     ``_BLOCKWISE_AREA`` branch).  ``k``/``v`` may have fewer (GQA) heads
-    than ``q``: the dense path expands them, the flash path consumes them
-    grouped."""
+    than ``q``: the dense path expands them; the flash path consumes them
+    grouped, or expanded and pinned under a pinned mesh."""
     sq, sk = q.shape[1], k.shape[1]
     n_rep = q.shape[2] // k.shape[2]
     if sq * sk > _BLOCKWISE_AREA and sq > 1:
         q_chunk = 512 if sq % 512 == 0 else math.gcd(sq, 512)
         k_chunk = 1024 if sk % 1024 == 0 else math.gcd(sk, 1024)
+        if _ATTN_MESH["mesh"] is not None:
+            return _pinned_flash(q, k, v, window, causal, scale, q_chunk,
+                                 k_chunk)
         return flash_attention(q, k, v, window, causal, scale, q_chunk,
                                k_chunk)
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)

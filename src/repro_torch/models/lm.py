@@ -20,7 +20,9 @@ shares those tensors with the new ``len``.
 both, forward and backward.  ``cfg.remat`` checkpoints each block
 (``layers.remat``): the backward recomputes the whole block, where the
 reference's policy keeps the flash attention's output and log-sum-exp
-(``flash_out``, ``flash_lse``); the gradient is the same.
+(``flash_out``, ``flash_lse``); the gradient is the same.  Each block's
+output passes the residual pin (``layers.shard_residual``), the identity
+unless ``train.step.place_gspmd`` pinned a mesh.
 """
 
 from __future__ import annotations
@@ -153,6 +155,7 @@ def _forward_lm(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     aux = 0.0
     for blk, win in zip(params["blocks"], layer_windows(cfg)):
         h, aux_i = step(blk, h, win)
+        h = L.shard_residual(h)
         aux = aux + aux_i
     return L.rmsnorm(h, params["ln_f"], cfg.norm_eps), aux
 

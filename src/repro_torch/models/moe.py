@@ -10,9 +10,12 @@ capacity are dropped (their combine weight is 0), as in GShard.
 With ``dist_mesh`` (a ``(Pm, Pn, Pc)`` serving mesh) the expert
 contractions run through :func:`repro_torch.dist.lm.expert_ffn_distributed`
 -- experts over the contraction (c) ring, the expert ff dim over n, each
-per-expert product through ``kernels.ops.local_matmul``.  The
-reference's ``_shard_dispatch`` is a GSPMD pin of the dispatch tensors;
-the port has no GSPMD mode, so it is the identity and is left out.
+per-expert product through ``kernels.ops.local_matmul``.  Otherwise the
+dispatch and combine tensors are pinned by :func:`_shard_dispatch`, the
+reference's GSPMD pin: under ``train.step.place_gspmd``'s mesh the expert
+dim goes over the model axis (where the expert weights' is, by
+``parallel.sharding``) and the groups over the data axes; without a mesh
+it is the identity.
 """
 
 from __future__ import annotations
@@ -23,7 +26,28 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _init
+from repro_torch.models.layers import _ATTN_MESH, _b_spec, _init, _mesh_size
+
+
+def _dispatch_spec(shape) -> tuple:
+    """The pin of a [g, t, E, C] dispatch tensor: groups over the data
+    axes, E over model where it divides and the model axis carries no
+    batch."""
+    m = _mesh_size("model")
+    e_spec = "model" if (m > 1 and shape[2] % m == 0
+                         and "model" not in _ATTN_MESH["dp"]) else None
+    return (_b_spec(shape[0]), None, e_spec, None)
+
+
+def _shard_dispatch(x: torch.Tensor) -> torch.Tensor:
+    """Constrain [g, t, E, C] dispatch tensors to E-over-model (and groups
+    over the data axes).  The router logits are replicated over the model
+    axis, so each rank builds its experts' slice locally."""
+    if _ATTN_MESH["mesh"] is None:
+        return x
+    from repro_torch.dist.collectives import constrain
+    return constrain(x, _ATTN_MESH["mesh"], _dispatch_spec(x.shape),
+                     tag="dispatch")
 
 
 def init_moe(generator, d_model: int, d_ff: int, n_experts: int,
@@ -109,6 +133,9 @@ def moe_layer(params: Dict, x: torch.Tensor, *, top_k: int,
                 xg, disp, comb, params["w_gate"], params["w_up"],
                 params["w_down"], dist_mesh)
             return out.reshape(b, s, d).to(x.dtype), aux
+
+    disp = _shard_dispatch(disp)
+    comb = _shard_dispatch(comb)
 
     xe = torch.einsum("gtd,gtec->gecd", xg, disp)                # [g,E,C,d]
     hgate = torch.einsum("gecd,edf->gecf", xe, params["w_gate"])

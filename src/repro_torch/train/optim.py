@@ -34,8 +34,9 @@ class AdamW:
     clip_norm: float = 1.0
 
     def init(self, params) -> AdamWState:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):   # a DTensor's moments are placed as it is
+            return torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
         return AdamWState(step=0, m=pytree.tree_map(zeros, params),
                           v=pytree.tree_map(zeros, params))
 

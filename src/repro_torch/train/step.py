@@ -6,15 +6,26 @@ over one mesh axis, and the optimizer update.
 batch) -> (state, metrics)``, a function of its inputs (the state is not
 updated in place).  ``mode`` is the reference's (:data:`MODES`):
 
-* ``"gspmd"`` (default): plain autograd of the loss on this rank.  On one
-  rank that is the reference's GSPMD step, whose sharding is then the
-  identity.  With ``compress_axis=`` (and the mesh that names it) each
-  rank's gradients are mean-reduced over that axis by
-  ``dist.compress.compressed_psum_tree`` (int8, error feedback carried
-  in ``TrainState.err``) before the update: data parallelism over the
-  axis, each rank passing its own batch.  On more than one rank without
-  ``compress_axis`` the reference shards the step by its GSPMD specs
-  (``parallel/sharding.py``), which the port has not yet: it raises;
+* ``"gspmd"`` (default): autograd of the loss.  On one rank with plain
+  tensors that is the reference's GSPMD step, whose sharding is then the
+  identity.  :func:`place_gspmd` does what the reference's
+  ``launch/dryrun.py::build_train`` assembles: it decides every
+  parameter's spec (``parallel.sharding.param_specs``), pins the
+  attention mesh, and places the state as DTensors on a ``("data",
+  "model")`` (or ``("pod", "data", "model")``) ``DeviceMesh``; its
+  ``place_batch`` places a batch by ``batch_specs``.  On placed state the
+  step runs the loss on DTensors (their sharding propagation issues the
+  collectives XLA would), redistributes each gradient to its parameter's
+  placements -- the reduce-scatter / all-reduce the reference's XLA
+  emits -- and updates the placed parameters and AdamW moments; ``loss``,
+  ``grad_norm`` and ``step`` come out replicated, as plain tensors.  With
+  ``compress_axis=`` (and the mesh that names it) each rank's gradients
+  of plain parameters are mean-reduced over that axis by
+  ``dist.compress.compressed_psum_tree`` (int8, error feedback carried in
+  ``TrainState.err``) before the update: data parallelism over the axis,
+  each rank passing its own batch.  On more than one rank, a step on
+  plain parameters without ``compress_axis`` raises ``ValueError``: it
+  would train each rank on its own;
 * ``"dist-grid"``: the loss runs through the ``dist`` ops
   (``dist.train.make_grid_train_step``), whose backward passes and glue
   already leave the complete gradient of every parameter on every rank,
@@ -25,6 +36,9 @@ updated in place).  ``mode`` is the reference's (:data:`MODES`):
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -41,20 +55,113 @@ class TrainState(NamedTuple):
 
 MODES = ("gspmd", "dist-grid")
 
-GSPMD_LATER = ("mode='gspmd' on more than one rank shards the step by the "
-               "reference's GSPMD specs (parallel/sharding.py), which the "
-               "port has not yet (ROADMAP Queue 1 item 3(e)); pass "
-               "compress_axis= for data parallelism, or train on the grid "
-               "(mode='dist-grid')")
+PLACE_FIRST = ("mode='gspmd' on more than one rank needs placed state: "
+               "place the parameters and the batch with "
+               "train.step.place_gspmd (or pass compress_axis= for data "
+               "parallelism on plain parameters)")
+
+#: The families whose gspmd step runs on placed state; the recurrences'
+#: ``autograd.Function``s (``ssm._ClrScan``, ``ssm._SlstmScan``) take no
+#: DTensor yet (ROADMAP Queue 1 item 3(e)).
+GSPMD_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _value_and_grad(loss_fn, params, batch):
+class GspmdPlacement(NamedTuple):
+    """What :func:`place_gspmd` assembles: the placed state, the mesh, the
+    parameter and batch specs, the sharding decisions and whether the
+    model axis carries batch (``dp_all``)."""
+    state: TrainState
+    mesh: Any
+    param_specs: Any
+    batch_specs: Dict
+    decisions: Dict
+    dp_all: bool
+
+    def place_batch(self, batch: Dict) -> Dict:
+        """A global batch (the same on every rank) placed by the batch
+        specs: each rank keeps its block."""
+        from repro_torch.dist.collectives import place
+        return {k: place(v, self.mesh, self.batch_specs[k])
+                for k, v in batch.items()}
+
+
+def place_gspmd(cfg, mesh, state: TrainState, batch: Dict, *,
+                hbm_bytes: Optional[float] = None,
+                mem_elems: Optional[int] = None) -> GspmdPlacement:
+    """The reference's ``build_train`` assembly on a ``DeviceMesh``:
+    ``param_specs`` at the batch's tokens per step, ``pure_dp``, the
+    attention mesh over ``("pod", "data", "model")`` when every matmul is
+    data parallel (else ``("pod", "data")``), ``batch_specs`` (the model
+    axis carrying batch under ``pure_dp``), and ``state`` (whole tensors,
+    the same on every rank: a fresh ``init_train_state`` or a restored
+    checkpoint) placed: the parameters and both AdamW moments by the
+    parameters' specs.  ``batch`` is a batch of the global shape (its
+    values are not read).  The memory budget defaults to the mesh's
+    device's (``parallel.sharding.device_budget``)."""
+    from repro_torch.dist.collectives import place
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as shd
+
+    if cfg.family not in GSPMD_FAMILIES and math.prod(mesh.shape) > 1:
+        raise NotImplementedError(
+            f"the {cfg.family} family's gspmd step on more than one rank "
+            f"is not carried yet: its recurrences' autograd Functions take "
+            f"no DTensor (ROADMAP Queue 1 item 3(e))")
+    if hbm_bytes is None or mem_elems is None:
+        dev_bytes, dev_elems = shd.device_budget(mesh.device_type)
+        hbm_bytes = dev_bytes if hbm_bytes is None else hbm_bytes
+        mem_elems = dev_elems if mem_elems is None else mem_elems
+    global_batch, seq = batch["tokens"].shape[:2]
+    pspecs = shd.param_specs(cfg, state.params, mesh,
+                             tokens_per_step=global_batch * seq,
+                             hbm_bytes=hbm_bytes, mem_elems=mem_elems)
+    decisions = dict(shd.param_specs.last_decisions)
+    dp_all = shd.pure_dp(decisions)
+    L.set_attention_mesh(
+        mesh, ("pod", "data", "model") if dp_all else ("pod", "data"))
+    bspecs = shd.batch_specs(cfg, mesh, batch, global_batch=global_batch,
+                             include_model=dp_all)
+    specs = shd.flat_specs(pspecs)
+
+    def placed(tree):
+        flat, treedef = pytree.tree_flatten(tree)
+        return pytree.tree_unflatten(
+            [place(t, mesh, s) for t, s in zip(flat, specs)], treedef)
+
+    if state.err is not None:
+        raise ValueError("a compressed state (err) is data parallel over "
+                         "its own axis; place_gspmd takes state without it")
+    state = TrainState(params=placed(state.params),
+                       opt=state.opt._replace(m=placed(state.opt.m),
+                                              v=placed(state.opt.v)))
+    return GspmdPlacement(state, mesh, pspecs, bspecs, decisions, dp_all)
+
+
+def _value_and_grad(loss_fn, params, batch, placed: bool = False):
+    """The loss and its gradient tree.  On placed (DTensor) parameters the
+    model's own plain tensors count as replicated, and each gradient is
+    redistributed to its parameter's placements."""
+    from repro_torch.dist import collectives as C
     leaves, spec = pytree.tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
-    with torch.enable_grad():
+    region = C.replicated_region() if placed else contextlib.nullcontext()
+    with torch.enable_grad(), region:
         loss = loss_fn(pytree.tree_unflatten(leaves, spec), batch)
         grads = torch.autograd.grad(loss, leaves)
+    if placed:
+        grads = [C.constrain_like(g, p, tag="grad")
+                 for g, p in zip(grads, leaves)]
     return loss.detach(), pytree.tree_unflatten(list(grads), spec)
+
+
+def _check_placed_batch(batch: Dict) -> None:
+    from repro_torch.dist.collectives import is_placed
+    plain = [k for k, v in batch.items() if not is_placed(v)]
+    if plain:
+        raise ValueError(f"the state is placed but batch leaves {plain} are "
+                         f"plain: place the batch with "
+                         f"GspmdPlacement.place_batch (train.step."
+                         f"place_gspmd)")
 
 
 def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
@@ -67,30 +174,41 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
     names an axis of the ``DeviceMesh`` ``compress_mesh`` over which the
     gradients are mean-reduced through the int8 compressor (the state
     then needs ``init_train_state(..., compress=True)``).  ``mode``: see
-    the module docstring; the reference's refusals, and
-    ``NotImplementedError`` for ``"gspmd"`` on more than one rank without
-    ``compress_axis``."""
+    the module docstring; the reference's refusals.  On placed state the
+    batch must be placed too (``GspmdPlacement.place_batch``), and
+    ``n_microbatches`` splits each rank's block of it."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "dist-grid" and compress_axis is not None:
         raise ValueError(
             "compress_axis needs a bound GSPMD mesh axis; in dist-grid "
             "mode the reductions live inside the dist-op VJPs")
-    if mode == "gspmd" and compress_axis is None:
-        from repro_torch.dist.collectives import world_size
-        if world_size() > 1:
-            raise NotImplementedError(GSPMD_LATER)
     if compress_axis is not None and compress_mesh is None:
         raise ValueError("compress_axis needs the DeviceMesh that names it "
                          "(compress_mesh=)")
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
+        from repro_torch.dist import collectives as C
+        placed = C.is_placed(pytree.tree_leaves(state.params)[0])
+        if placed and compress_axis is not None:
+            raise ValueError("compress_axis reduces plain parameters' "
+                             "gradients; placed state reduces them by its "
+                             "placements")
+        if placed:
+            _check_placed_batch(batch)
+        elif mode == "gspmd" and compress_axis is None \
+                and C.world_size() > 1:
+            raise ValueError(PLACE_FIRST)
         if n_microbatches > 1:
+            split = (functools.partial(C.split_local, n=n_microbatches)
+                     if placed else lambda v: v.chunk(n_microbatches))
+            pieces = {k: split(v) for k, v in batch.items()}
             grads, loss = None, 0.0
             for i in range(n_microbatches):
-                mb = {k: v.chunk(n_microbatches)[i] for k, v in batch.items()}
-                l_i, g_i = _value_and_grad(loss_fn, state.params, mb)
+                mb = {k: v[i] for k, v in pieces.items()}
+                l_i, g_i = _value_and_grad(loss_fn, state.params, mb,
+                                           placed)
                 g_i = pytree.tree_map(lambda g: g.float(), g_i)
                 grads = g_i if grads is None else pytree.tree_map(
                     torch.add, grads, g_i)
@@ -98,14 +216,17 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
             grads = pytree.tree_map(lambda g: g / n_microbatches, grads)
             loss = loss / n_microbatches
         else:
-            loss, grads = _value_and_grad(loss_fn, state.params, batch)
+            loss, grads = _value_and_grad(loss_fn, state.params, batch,
+                                          placed)
         err = state.err
         if compress_axis is not None:
             from repro_torch.dist.compress import compressed_psum_tree
             grads, err = compressed_psum_tree(grads, compress_mesh,
                                               compress_axis, err)
         params, opt = optimizer.update(grads, state.opt, state.params)
-        metrics = {"loss": loss.float(), "grad_norm": global_norm(grads),
+        metrics = {"loss": C.full_tensor(loss.float(), tag="gspmd_metric"),
+                   "grad_norm": C.full_tensor(global_norm(grads),
+                                              tag="gspmd_metric"),
                    "step": opt.step}
         return TrainState(params=params, opt=opt, err=err), metrics
 
@@ -114,7 +235,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW, *,
 
 def init_train_state(params, optimizer: AdamW, *,
                      compress: bool = False) -> TrainState:
-    err = (pytree.tree_map(lambda p: torch.zeros(
-        p.shape, dtype=torch.float32, device=p.device), params)
+    err = (pytree.tree_map(
+        lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         if compress else None)
     return TrainState(params=params, opt=optimizer.init(params), err=err)

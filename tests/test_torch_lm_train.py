@@ -423,7 +423,9 @@ def _loss_and_grads(cfg, mesh=None):
 
 def _grid_rank(rank):
     """``loss_lm(dist_mesh=)`` on the grid for both archs, the static
-    plan; and ``mode="gspmd"`` refused on more than one rank."""
+    plan; and ``mode="gspmd"`` on more than one rank: the step builds,
+    refuses plain state, and runs on state placed on a ``(4, 1)`` mesh
+    by ``place_gspmd``."""
     from repro_torch.dist.collectives import record_collectives
     from repro_torch.dist.matmul import make_matmul_mesh
     from repro_torch.kernels.autotune import autotune_disabled
@@ -437,10 +439,25 @@ def _grid_rank(rank):
             with record_collectives() as notes:
                 out[arch] = _loss_and_grads(_grid_cfg(arch), mesh)
             out[arch + ":tags"] = sorted({n.tag for n in notes})
+    from repro_torch.dist.collectives import make_mesh
+    cfg = _grid_cfg("llama3.2-1b")
+    opt = toptim.AdamW()
+    step = tstep.make_train_step(lambda p, b: tlm.loss_lm(p, cfg, b), opt)
+    state = tstep.init_train_state(
+        tlm.init_lm(torch.Generator().manual_seed(7), cfg, device="cpu"),
+        opt)
     try:
-        tstep.make_train_step(lambda p, b: 0.0, toptim.AdamW())
-    except NotImplementedError as e:
+        step(state, _grid_batch(cfg))
+    except ValueError as e:
         out["gspmd"] = str(e)
+    pl = tstep.place_gspmd(cfg, make_mesh((4, 1), ("data", "model"),
+                                          device="cpu"),
+                           state, _grid_batch(cfg))
+    try:
+        _, metrics = step(pl.state, pl.place_batch(_grid_batch(cfg)))
+    finally:
+        L.set_attention_mesh(None)
+    out["gspmd_loss"] = float(metrics["loss"])
     return out
 
 
@@ -471,4 +488,7 @@ def test_loss_on_the_grid_matches_dense():
         assert {"serve_glue", "reshard", "scatter_axis"} <= tags
         if arch.startswith("granite"):
             assert {"moe_combine", "moe_dx", "moe_dcomb"} <= tags
-    assert all("parallel/sharding.py" in o["gspmd"] for o in outs)
+    assert all("place_gspmd" in o["gspmd"] for o in outs)
+    loss, _ = _loss_and_grads(_grid_cfg("llama3.2-1b"))
+    for o in outs:
+        assert abs(o["gspmd_loss"] - loss) <= LOSS_RTOL * abs(loss)

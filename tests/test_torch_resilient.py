@@ -167,8 +167,9 @@ def test_a_signal_on_one_rank_stops_every_rank(tmp_path):
 
 
 def test_host_mesh_trains_the_lm_on_one_rank(capsys):
-    """``--mesh host`` is the dense LM trainer (one rank; more ranks wait
-    for the GSPMD sharding); unknown flags still exit."""
+    """``--mesh host`` is the dense LM trainer, on one rank by default and
+    on ``--ranks 2`` over the GSPMD host mesh; unknown flags still
+    exit."""
     from repro_torch.launch import train
 
     report = train.main(["--mesh", "host", "--smoke", "--device", "cpu",
@@ -177,7 +178,10 @@ def test_host_mesh_trains_the_lm_on_one_rank(capsys):
     assert report["end_step"] == 2 and not report["preempted"]
     assert all(np.isfinite(report["losses"]))
     assert "[train] llama3.2-1b (smoke) ranks=1" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="parallel/sharding.py"):
-        train.main(["--mesh", "host", "--ranks", "2", "--device", "cpu"])
+    two = train.main(["--mesh", "host", "--ranks", "2", "--smoke",
+                      "--device", "cpu", "--arch", "llama3.2-1b",
+                      "--steps", "2", "--batch", "2", "--seq", "8"])
+    assert two["end_step"] == 2 and not two["preempted"]
+    assert all(np.isfinite(two["losses"]))
     with pytest.raises(SystemExit):
         train.main(["--mesh", "dist-grid", "--bogus", "1"])
