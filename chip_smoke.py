@@ -36,7 +36,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    prints the paper's Eq. 4 block plan at the card's budget
    (``kernels.tiling.plan_blocks``, ``SMEM_PER_BLOCK`` of f32, 64-wide
    tiles) beside the launch the kernel took (``kernels._plan``'s tile
-   and splits): printed, not used;
+   and splits): printed, not used.  Then ``kernels.ops.matmul``, the
+   reference's public GEMM at an explicit block plan, at the CNN head's
+   ``[64,512]@[512,1000]`` and at each distinct product of phase 11
+   (a)'s llama3.2-1b step (forward, dX, dW of the four projection
+   shapes), each under its default Eq. 4 plan, ``(128, 128, .)`` and
+   ``(64, 64, .)`` (a plan that does not divide the extents refused,
+   as the reference refuses it): forward and gradients against the
+   plain version within ``KERNEL_RTOL``, the tuner off, those passes'
+   GEMM launches (the ``ops_matmul`` path) gated to the calls made; the
+   forward timed beside the launch's own plan, ``torch.matmul`` and the
+   FFMA bound (``{"phase": "ops_matmul", ...}`` rows and their sums over
+   one llama3.2-1b step, the tile sweep: printed, not gated);
 4. inference at full width: the repro CNN at ResNet-50's 3x3 stage
    widths (channels 64..512, 3 input channels, 1000 classes, batch 64,
    56x56) answers batches of images through ``forward_cnn(dist_mesh=...)``
@@ -207,20 +218,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU within ``LOSS_RTOL`` / ``GRAD_RTOL``; (e) ``python -m
    repro_torch.launch.train --mesh host --arch llama3.2-1b --steps 4
    --batch 8 --seq 64`` in a subprocess (full width, its own bf16,
-   dense), run beside (d): exit 0 and four finite losses; (f) the same
-   llama3.2-1b steps under ``mode="gspmd"`` on placed state
-   (``train.step.place_gspmd``): a one-rank ``("data", "model")`` =
-   (1, 1) mesh, every parameter and AdamW moment a DTensor placed by
-   ``parallel.sharding.param_specs``, the batch by ``batch_specs``; each
-   step's loss within ``LOSS_RTOL`` of the dense run's, the step-1
-   gradients within ``GRAD_RTOL``, no kernel launched (the dense LM
-   path runs none in either package) and no collective
-   (``CommDebugMode``, over step 1) on one rank, in ``LM_GSPMD_STEPS``
-   steps; the later step's time and peak printed beside dense's
+   dense), run beside (d): exit 0 and four finite losses; (f)
+   llama3.2-1b at its published width, cut to ``LM_GSPMD_LAYERS`` layers
+   (to keep the phase's time), the same batch, ``LM_GSPMD_STEPS`` steps
+   under ``mode="gspmd"`` on placed state (``train.step.place_gspmd``):
+   a one-rank ``("data", "model")`` = (1, 1) mesh, every parameter and
+   AdamW moment a DTensor placed by ``parallel.sharding.param_specs``,
+   the batch by ``batch_specs``, beside the same steps dense from the
+   same weights; each step's loss within ``LOSS_RTOL`` of dense's, the
+   step-1 gradients within ``GRAD_RTOL``, no kernel launched (the dense
+   LM path runs none in either package) and no collective
+   (``CommDebugMode``, over step 1) on one rank; the later step's time,
+   a profiled step and the peak printed beside dense's
    (``{"phase": "lm_train_gspmd", ...}``); (g) host only, the
    decisions ``param_specs`` makes for llama3.2-1b and granite-moe at
    full width on ``(1, 4)`` and ``(2, 2)`` meshes under the card's own
-   memory, printed;
+   memory, printed; (h) the ssm, hybrid and encdec families under
+   ``mode="gspmd"`` on the same one-rank ``(1, 1)`` mesh, every
+   parameter and moment a DTensor, each beside the same steps dense from
+   the same weights, in f32 at their published widths: xlstm-350m at
+   full depth, batch 8 x 8 tokens (its random sLSTM is chaotic),
+   zamba2-7b cut to ``ZOO_CUT_LAYERS`` layers (one shared application),
+   whisper-tiny at full depth with 1500 frames and batch 8 x 64 decoder
+   tokens; each step's loss within ``LOSS_RTOL`` of dense, the step-1
+   gradients within ``GRAD_RTOL``, no kernel launched (the reference's
+   zoo runs none; the ``train_lm_gspmd_zoo`` path), no collective
+   (``CommDebugMode`` over step 1); p50 (steps 2 on) and peak beside dense's
+   (``{"phase": "lm_train_gspmd_zoo", ...}``);
 12. the schedule verifier (``repro_torch.analysis``): the AST lint and
    the doc lint on the tree (no jax needed), zero findings; then
    ``analysis.verify.run_specs`` on one rank (nccl, world 1), the static
@@ -328,7 +352,10 @@ XLSTM_TF_PROMPT = 2
 # phase 11: LM training, llama3.2-1b at full width and depth in float32
 LM_TRAIN_ARCH = "llama3.2-1b"
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 64, 3
-LM_GSPMD_STEPS = 2   # phase 11 (f): the first under CommDebugMode
+LM_GSPMD_STEPS = 2   # phase 11 (f) and (h): the first under CommDebugMode
+LM_GSPMD_LAYERS = 4  # phase 11 (f): llama3.2-1b cut to 4 of its 16 layers
+# phase 11 (h): the zoo under mode="gspmd", published widths, float32
+ZOO_GSPMD_BATCH, ZOO_GSPMD_SSM_SEQ, ZOO_GSPMD_DEC_SEQ = 8, 8, 64
 LM_TRAIN_LR = 1e-3
 FLASH_SEQ = 4096   # above the flash threshold: S * S > 2048 ** 2
 # phase 12: the schedule verifier, each cell in every schedule
@@ -739,6 +766,155 @@ def resnet50_phase(device):
                for key in ("kernel_ms", "library_ms", "bound_ms")}
         for kind, rs in rows.items()}}), flush=True)
     return rows
+
+
+def _ops_matmul_shapes():
+    """The shapes of the ``ops.matmul`` sweep, ``(m, k, n, count)``: the
+    CNN head's forward product, then each distinct product of phase 11
+    (a)'s llama3.2-1b train step (forward, dX and dW of the four
+    projection shapes) with its count per step."""
+    from collections import Counter
+
+    cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32")
+    counts = Counter(lm_train_products(cfg, LM_TRAIN_BATCH * LM_TRAIN_SEQ))
+    return [(BATCH, CHANNELS[-1], N_CLASSES, 1)] + [
+        (m, c, n, count) for (m, c, n), count in sorted(counts.items())]
+
+
+def ops_matmul_phase(device):
+    """Phase 3's ``ops.matmul`` rows: the reference's public GEMM at each
+    shape of :func:`_ops_matmul_shapes` under three plans -- its default
+    Eq. 4 plan, ``(128, 128, .)`` and ``(64, 64, .)`` (``.`` the default
+    plan's ``block_k``) -- a plan that does not divide the extents
+    refused, as the reference refuses it.  Each run that is not refused
+    is checked first, the tuner off: forward and the gradients of a
+    random cotangent against autograd through the plain version, within
+    ``KERNEL_RTOL`` of max|plain|; those passes are the ``ops_matmul``
+    path, whose launches (one forward, dX and dW through ``local_matmul``)
+    are gated to the calls made.  Then each run's forward is timed (CUDA
+    events back to back, and device only) beside the launch's own plan
+    (``kernels.matmul.matmul``), ``torch.matmul`` and the FFMA bound:
+    printed, not gated.  Returns (rows, the path's launches, the sums
+    over one llama3.2-1b step's products per plan)."""
+    from repro_torch.kernels import _plan, ops
+    from repro_torch.kernels.autotune import autotune_disabled
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    sms = _plan.sm_count(torch.cuda.current_device())
+    shapes = _ops_matmul_shapes()
+    runs = []
+    for m, k, n, count in shapes:
+        default = ops.matmul_plan(m, n, k)
+        for kind, blocks in (("eq4", default),
+                             ("128x128", (128, 128, default[2])),
+                             ("64x64", (64, 64, default[2]))):
+            try:
+                planned = ops.planned_blocks(m, n, k, *blocks)
+            except ValueError as e:
+                runs.append({"shape": [m, k, n], "count": count,
+                             "plan": kind, "blocks": list(blocks),
+                             "refused": str(e)})
+                continue
+            tile = _plan.block_tile(*planned[:2])
+            launch = _plan.gemm_plan(1, m, n, k, sms, tile)
+            runs.append({"shape": [m, k, n], "count": count, "plan": kind,
+                         "blocks": list(planned),
+                         "tile": list(launch.tile), "splits": launch.splits,
+                         "own_tile": list(_plan.gemm_plan(1, m, n, k,
+                                                          sms).tile)})
+    # the path: every run's forward and backward, launches counted
+    _zero_counts()
+    calls = 0
+    with autotune_disabled():
+        for run in runs:
+            if "refused" in run:
+                continue
+            m, k, n = run["shape"]
+            x = torch.randn(m, k, generator=gen, device=device)
+            w = torch.randn(k, n, generator=gen, device=device)
+            g = torch.randn(m, n, generator=gen, device=device)
+            got, want = [], []
+            for fn, into in ((lambda a, b: ops.matmul(
+                    a, b, block_m=run["blocks"][0],
+                    block_n=run["blocks"][1], block_k=run["blocks"][2]),
+                    got), (matmul_plain, want)):
+                a, b = x.clone().requires_grad_(True), \
+                    w.clone().requires_grad_(True)
+                y = fn(a, b)
+                y.backward(g)
+                into += [y.detach(), a.grad, b.grad]
+            calls += 3
+            torch.cuda.synchronize()
+            errs = [float((o - r).abs().max()) / float(r.abs().max())
+                    for o, r in zip(got, want)]
+            run["rel_err"] = max(errs)
+            run["max_abs_err"] = max(float((o - r).abs().max())
+                                     for o, r in zip(got, want))
+            run["rel_err_by"] = dict(zip(("y", "dx", "dw"), errs))
+            del x, w, g, got, want
+    launches = _launch_counts()
+    # the timings: not on the path
+    own = {}
+    for run in runs:
+        if "refused" in run:
+            continue
+        m, k, n = run["shape"]
+        x = torch.randn(m, k, generator=gen, device=device)
+        w = torch.randn(k, n, generator=gen, device=device)
+        bm, bn, bk = run["blocks"]
+
+        def fwd():
+            return ops.matmul(x, w, block_m=bm, block_n=bn, block_k=bk)
+
+        run["kernel_ms"] = time_ms(fwd, iters=20, warmup=3, repeats=4)
+        run["kernel_device_ms"] = device_ms(fwd)
+        if (m, k, n) not in own:
+            own[(m, k, n)] = {
+                "own_plan_ms": time_ms(lambda: matmul(x, w), iters=20,
+                                       warmup=3, repeats=4),
+                "own_plan_device_ms": device_ms(lambda: matmul(x, w)),
+                "library_ms": time_ms(lambda: torch.matmul(x, w), iters=20,
+                                      warmup=3, repeats=4),
+                "library_device_ms": device_ms(lambda: torch.matmul(x, w)),
+                "plain_ms": time_ms(lambda: matmul_plain(x, w), iters=3,
+                                    warmup=1, repeats=1)}
+        run.update(own[(m, k, n)])
+        run["bound_ms"], run["bound_by"] = bound(
+            2.0 * m * k * n, 4.0 * (m * k + k * n + m * n))
+        run["bound_share"] = run["bound_ms"] / run["kernel_device_ms"]
+        del x, w
+    for run in runs:
+        print(json.dumps(dict(run, phase="ops_matmul")), flush=True)
+    for run in runs:
+        if "refused" not in run:
+            check(run["rel_err"] <= KERNEL_RTOL,
+                  f"ops.matmul {run['shape']} plan {run['blocks']}: "
+                  f"{run['rel_err_by']} > {KERNEL_RTOL}")
+        else:   # refused only where a clamped block does not divide
+            m, k, n = run["shape"]
+            check(any(e % min(b, e) for b, e in zip(run["blocks"],
+                                                    (m, n, k))),
+                  f"ops.matmul refused a plan that divides: {run}")
+    want = dict(dict.fromkeys(launches, 0), matmul=calls)
+    check(launches == want, f"ops.matmul path launches {launches}, the "
+          f"calls made give {want}")
+    step = {}
+    for kind in ("eq4", "128x128", "64x64"):
+        on = [r for r in runs if r["plan"] == kind
+              and r["shape"] != [BATCH, CHANNELS[-1], N_CLASSES]]
+        done = [r for r in on if "refused" not in r]
+        step[kind] = {"products": sum(r["count"] for r in on),
+                      "refused": sum(r["count"] for r in on
+                                     if "refused" in r),
+                      **{key: sum(r["count"] * r[key] for r in done)
+                         for key in ("kernel_device_ms",
+                                     "own_plan_device_ms",
+                                     "library_device_ms", "bound_ms")}}
+    print(json.dumps({"phase": "ops_matmul_step", "card": card_line(),
+                      "per": f"one {LM_TRAIN_ARCH} train step's products",
+                      "sums": step}), flush=True)
+    return [r for r in runs if "refused" not in r], launches, step
 
 
 @contextlib.contextmanager
@@ -2699,9 +2875,7 @@ def _lm_train_rank(rank):
         out["step1_loss"] = {"grid": loss_g, "dense": loss_d}
         out["step1_grad_rel_err"] = _grad_rel(grads_g, grads_d)
         out["grad_tensors"] = len(grads_g)
-        del grads_g
-        torch.cuda.empty_cache()
-        out["gspmd"] = _lm_gspmd(cfg, params, batch, grads_d, device)
+        del grads_g, grads_d
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state, step, grid = _lm_train_steps(cfg, params, batch, mesh,
@@ -2739,73 +2913,122 @@ def _lm_train_rank(rank):
     return out
 
 
-def _lm_gspmd(cfg, params, batch, grads_d, device):
-    """Phase 11 (f): ``mode="gspmd"`` on placed state.  A one-rank
-    ``("data", "model")`` = (1, 1) mesh, every parameter and AdamW moment
-    a DTensor placed by ``parallel.sharding.param_specs``
-    (``train.step.place_gspmd``), the batch by ``batch_specs``: the
-    step-1 gradients against the dense ones (``grads_d``, a list this
-    function empties once compared) and ``LM_GSPMD_STEPS`` steps, each
-    with its kernels' launches.  The first step runs under
-    ``CommDebugMode`` (its collectives counted; the mode sees every op,
-    so that step's time is printed apart), the later ones without it
-    (their p50 and peak); one more step profiled (device-busy against
-    wall)."""
+def _gspmd_vs_dense(cfg, batch, mesh, device, profile=False):
+    """Phase 11 (f) and (h) for one model: ``LM_GSPMD_STEPS`` AdamW steps
+    dense (plain tensors) and under ``mode="gspmd"`` on state placed on
+    the one-rank ``mesh`` (``train.step.place_gspmd``: every parameter
+    and moment a DTensor, the batch placed by ``batch_specs``), from the
+    same weights; the step-1 gradients of both; each step's loss, time
+    and launches, the first placed step under ``CommDebugMode`` (the mode
+    sees every op, so that step's time stands apart); the peak of each
+    run's steps; with ``profile``, one more placed step profiled
+    (device-busy against wall)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.dist import collectives as C
+    from repro_torch.models.api import model_fns
     from repro_torch.models.layers import set_attention_mesh
-    from repro_torch.models.lm import loss_lm
     from repro_torch.train.optim import AdamW
     from repro_torch.train.step import (_value_and_grad, init_train_state,
                                         make_train_step, place_gspmd)
 
     t0 = time.perf_counter()
-    mesh = C.make_mesh((1, 1), ("data", "model"), device=device)
+    fns = model_fns(cfg)
+    params = fns.init(torch.Generator(device=device).manual_seed(SEED), cfg,
+                      device=device)
+    loss_fn = lambda p, b: fns.loss(p, cfg, b)  # noqa: E731
     opt = AdamW(lr=LM_TRAIN_LR)
-    pl = place_gspmd(cfg, mesh, init_train_state(params, opt), batch)
-    state, pbatch = pl.state, pl.place_batch(batch)
-    out = {"place_s": time.perf_counter() - t0,
-           "placed": all(C.is_placed(t) for t in pytree.tree_leaves(
-               (state.params, state.opt.m, state.opt.v))),
-           "decisions": pl.decisions, "dp_all": pl.dp_all}
-    del pl
-    loss_fn = lambda p, b: loss_lm(p, cfg, b)  # noqa: E731
     step = make_train_step(loss_fn, opt)
-    steps = []
+    out = {"params": sum(p.numel() for p in _leaves(params))}
 
-    def timed_step(state):
-        _zero_counts()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, metrics = step(state, pbatch)
-        loss = float(metrics["loss"])
-        steps.append((loss, (time.perf_counter() - t1) * 1e3,
-                      _launch_counts()))
+    def run(state, b, n, into):
+        for _ in range(n):
+            _zero_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, b)
+            loss = float(metrics["loss"])
+            into.append((loss, (time.perf_counter() - t1) * 1e3,
+                         _launch_counts()))
         return state
 
+    dense = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run(init_train_state(params, opt), batch, LM_GSPMD_STEPS, dense)
+    out["dense_peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    _zero_counts()
+    _, grads_d = _value_and_grad(loss_fn, params, batch)
+    grads_d = pytree.tree_leaves(grads_d)
+    out["dense_grad_pass_launches"] = _launch_counts()
+    t1 = time.perf_counter()
+    pl = place_gspmd(cfg, mesh, init_train_state(params, opt), batch)
+    state, pbatch = pl.state, pl.place_batch(batch)
+    out.update(placed=all(C.is_placed(t) for t in pytree.tree_leaves(
+        (state.params, state.opt.m, state.opt.v))),
+        decisions=pl.decisions, dp_all=pl.dp_all,
+        place_s=time.perf_counter() - t1)
+    del pl
+    steps = []
     try:
         _zero_counts()
         _, grads = _value_and_grad(loss_fn, state.params, pbatch, True)
         out["grad_pass_launches"] = _launch_counts()
         out["step1_grad_rel_err"] = _grad_rel(
             [C.local_part(g) for g in pytree.tree_leaves(grads)], grads_d)
-        del grads
-        grads_d.clear()
+        del grads, grads_d
         torch.cuda.empty_cache()
-        with C.count_collectives() as comm:
-            state = timed_step(state)
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(LM_GSPMD_STEPS - 1):
-            state = timed_step(state)
-        peak = torch.cuda.max_memory_allocated()
-        out["profile"] = _profile(lambda: step(state, pbatch), 1,
-                                  "train_steps")
+        with C.count_collectives() as comm:
+            state = run(state, pbatch, 1, steps)
+        state = run(state, pbatch, LM_GSPMD_STEPS - 1, steps)
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        if profile:
+            out["profile"] = _profile(lambda: step(state, pbatch), 1,
+                                      "train_steps")
         del state
     finally:
         set_attention_mesh(None)
-    out.update(steps=steps, collectives=comm, peak_allocated_bytes=peak,
-               phase_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    out.update(steps=steps, dense=dense, collectives=comm,
+               arch_s=time.perf_counter() - t0)
+    return out
+
+
+def _gspmd_rank(rank):
+    """Phase 11 (f) and (h): each model under ``mode="gspmd"`` on a
+    one-rank ``("data", "model")`` = (1, 1) mesh beside the same steps
+    dense (:func:`_gspmd_vs_dense`), in float32 at its published widths:
+    (f) llama3.2-1b cut to ``LM_GSPMD_LAYERS`` layers, batch
+    ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``, one more step profiled; (h)
+    xlstm-350m at full depth, batch ``ZOO_GSPMD_BATCH`` x
+    ``ZOO_GSPMD_SSM_SEQ`` tokens (its random sLSTM is chaotic);
+    zamba2-7b cut to ``ZOO_CUT_LAYERS`` layers (one shared application);
+    whisper-tiny at full depth with ``WHISPER_FRAMES`` frames and
+    ``ZOO_GSPMD_DEC_SEQ`` decoder tokens."""
+    from repro_torch.dist import collectives as C
+
+    device = torch.device("cuda")
+    mesh = C.make_mesh((1, 1), ("data", "model"), device=device)
+    cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32", n_layers=LM_GSPMD_LAYERS)
+    out = {LM_TRAIN_ARCH: dict(_gspmd_vs_dense(
+        cfg, _lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, device), mesh,
+        device, profile=True), n_layers=cfg.n_layers,
+        d_model=cfg.d_model, batch=[LM_TRAIN_BATCH, LM_TRAIN_SEQ])}
+    for arch, seq, cut in ((ZOO_SSM, ZOO_GSPMD_SSM_SEQ, {}),
+                           (ZOO_HYBRID, ZOO_GSPMD_SSM_SEQ,
+                            {"n_layers": ZOO_CUT_LAYERS}),
+                           (ZOO_ENCDEC, ZOO_GSPMD_DEC_SEQ, {})):
+        cfg = _zoo_cfg(arch, "float32", **cut)
+        batch = _lm_batch(cfg, ZOO_GSPMD_BATCH, seq, device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(
+                (ZOO_GSPMD_BATCH, WHISPER_FRAMES, cfg.d_model),
+                generator=torch.Generator(device=device).manual_seed(SEED),
+                device=device)
+        out[arch] = dict(_gspmd_vs_dense(cfg, batch, mesh, device),
+                         n_layers=cfg.n_layers, d_model=cfg.d_model,
+                         batch=[ZOO_GSPMD_BATCH, seq])
     return out
 
 
@@ -2991,6 +3214,10 @@ def lm_train_phase(card):
     from repro_torch.dist.spawn import run_spmd
 
     r = run_spmd(_lm_train_rank, 1)[0]
+    t_gspmd = time.perf_counter()
+    zoo = run_spmd(_gspmd_rank, 1)[0]
+    gspmd = zoo.pop(LM_TRAIN_ARCH)
+    gspmd_s = time.perf_counter() - t_gspmd
     cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32")
     rows_per_step = len(lm_train_products(cfg, LM_TRAIN_BATCH
                                           * LM_TRAIN_SEQ))
@@ -3006,30 +3233,43 @@ def lm_train_phase(card):
     decisions = _sharding_decisions(device)
     phase_s = time.perf_counter() - t_phase
     grid, dense = r["grid"], r["dense"]
-    gspmd = r["gspmd"]
+
+    def gspmd_line(z):
+        return {
+            "n_layers": z["n_layers"], "d_model": z["d_model"],
+            "params": z["params"], "batch": z["batch"],
+            "placed": z["placed"], "dp_all": z["dp_all"],
+            "decisions": z["decisions"],
+            "losses": [st[0] for st in z["steps"]],
+            "dense_losses": [st[0] for st in z["dense"]],
+            "step_ms": [st[1] for st in z["steps"]],
+            "dense_step_ms": [st[1] for st in z["dense"]],
+            "step1_under_comm_debug_mode": True,
+            "p50_step_ms": statistics.median(
+                st[1] for st in z["steps"][1:]),
+            "dense_p50_step_ms": statistics.median(
+                st[1] for st in z["dense"][1:]),
+            "peak_allocated_bytes": z["peak_allocated_bytes"],
+            "dense_peak_allocated_bytes": z["dense_peak_allocated_bytes"],
+            "step1_grad_rel_err": z["step1_grad_rel_err"],
+            "launches": z["grad_pass_launches"],
+            "launches_per_step": [st[2] for st in z["steps"]],
+            "dense_launches_per_step": [st[2] for st in z["dense"]],
+            "collectives": z["collectives"], "place_s": z["place_s"],
+            "arch_s": z["arch_s"]}
+
     print(json.dumps({
         "phase": "lm_train_gspmd", "card": card, "arch": LM_TRAIN_ARCH,
         "torch": torch.__version__, "mesh": {"data": 1, "model": 1},
-        "placed": gspmd["placed"], "decisions": gspmd["decisions"],
-        "dp_all": gspmd["dp_all"],
-        "losses": [s[0] for s in gspmd["steps"]],
-        "dense_losses": [s[0] for s in dense],
-        "step_ms": [s[1] for s in gspmd["steps"]],
-        "step1_under_comm_debug_mode": True,
-        "p50_step_ms": statistics.median(s[1] for s in gspmd["steps"][1:]),
-        "dense_p50_step_ms": statistics.median(s[1] for s in dense),
-        "dense_p50_step_ms_steps_2_on": statistics.median(
-            s[1] for s in dense[1:]),
-        "peak_allocated_bytes": gspmd["peak_allocated_bytes"],
-        "dense_peak_allocated_bytes": r["dense_peak_allocated_bytes"],
-        "step1_grad_rel_err": gspmd["step1_grad_rel_err"],
-        "launches": gspmd["grad_pass_launches"],
-        "launches_per_step": [s[2] for s in gspmd["steps"]],
-        "collectives": gspmd["collectives"],
+        **gspmd_line(gspmd),
         "device_busy_ms_per_step": gspmd["profile"]["device_busy_ms"],
         "profiled_step_wall_ms": gspmd["profile"]["wall_ms"],
-        "place_s": gspmd["place_s"], "gspmd_s": gspmd["phase_s"],
         "sharding_decisions": decisions}), flush=True)
+    print(json.dumps({
+        "phase": "lm_train_gspmd_zoo", "card": card,
+        "torch": torch.__version__, "mesh": {"data": 1, "model": 1},
+        "dtype": "float32", "phase_s": gspmd_s,
+        **{arch: gspmd_line(z) for arch, z in zoo.items()}}), flush=True)
     p50 = statistics.median(s[1] for s in grid)
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
     prof = r["profile"]
@@ -3097,23 +3337,32 @@ def lm_train_phase(card):
               f"{arch} smoke loss, card vs CPU: {e}")
     check(len(cli["losses"]) == 4 and all(np.isfinite(cli["losses"])),
           f"launch.train --mesh host losses {cli['losses']}")
-    check(gspmd["placed"], "the gspmd state is not placed")
-    for i, ((lg, _, _), (ld, _, _)) in enumerate(zip(gspmd["steps"],
-                                                      dense)):
-        check(abs(lg - ld) <= LOSS_RTOL * abs(ld),
-              f"llama train step {i + 1}: gspmd loss {lg} vs dense {ld}")
-    check(gspmd["step1_grad_rel_err"] <= GRAD_RTOL,
-          f"llama step-1 gradients, gspmd vs dense: "
-          f"{gspmd['step1_grad_rel_err']:.3e} > {GRAD_RTOL}")
-    gspmd_launches = [gspmd["grad_pass_launches"]] + [
-        s[2] for s in gspmd["steps"]]
-    check(all(not any(c.values()) for c in gspmd_launches),
-          f"the gspmd run launched a kernel: {gspmd_launches}")
-    check(gspmd["collectives"]["total"] == 0,
-          f"the one-rank gspmd run issued collectives: "
-          f"{gspmd['collectives']}")
+    # (f) and (h): each model under mode="gspmd" against its dense steps
+    placed_launches = {}
+    for arch, z in [(LM_TRAIN_ARCH, gspmd)] + list(zoo.items()):
+        check(z["placed"], f"{arch}: the gspmd state is not placed")
+        for i, ((lg, _, _), (ld, _, _)) in enumerate(zip(z["steps"],
+                                                          z["dense"])):
+            check(np.isfinite(lg) and abs(lg - ld) <= LOSS_RTOL * abs(ld),
+                  f"{arch} train step {i + 1}: gspmd loss {lg} vs dense "
+                  f"{ld}")
+        check(z["step1_grad_rel_err"] <= GRAD_RTOL,
+              f"{arch} step-1 gradients, gspmd vs dense: "
+              f"{z['step1_grad_rel_err']:.3e} > {GRAD_RTOL}")
+        check(z["collectives"]["total"] == 0,
+              f"{arch}: the one-rank gspmd run issued collectives: "
+              f"{z['collectives']}")
+        placed_launches[arch] = [z["grad_pass_launches"],
+                                 z["dense_grad_pass_launches"]] + [
+            st[2] for st in z["steps"] + z["dense"]]
+        check(all(not any(c.values()) for c in placed_launches[arch]),
+              f"{arch}: the gspmd or dense steps launched a kernel: "
+              f"{placed_launches[arch]}")
+    gspmd_launches = placed_launches.pop(LM_TRAIN_ARCH)
+    zoo_launches = [c for cs in placed_launches.values() for c in cs]
     return ({name: sum(s[2][name] for s in grid) for name in want},
             {name: sum(c[name] for c in gspmd_launches) for name in want},
+            {name: sum(c[name] for c in zoo_launches) for name in want},
             kernel_rows, kernel_step)
 
 
@@ -3300,6 +3549,8 @@ def main() -> int:
         r["kernel_ms"] for r in conv_infer)}), flush=True)
     for name, extra in resnet50_phase(device).items():
         rows[name] += extra
+    ops_rows, ops_matmul, ops_step = ops_matmul_phase(device)
+    rows["matmul"] += ops_rows
     _clock("kernels")
     infer = slice_phase()
     train, static = train_phase(card)
@@ -3317,8 +3568,8 @@ def main() -> int:
                       static, resilient_ms, serve_stats)
     zoo, _ = zoo_phase(card)
     _clock("perf, zoo")
-    train_lm, train_lm_gspmd, train_lm_rows, train_lm_step = \
-        lm_train_phase(card)
+    train_lm, train_lm_gspmd, train_lm_gspmd_zoo, train_lm_rows, \
+        train_lm_step = lm_train_phase(card)
     rows["matmul"] += train_lm_rows
     _clock("lm_train")
     verified = verify_phase(card)
@@ -3333,6 +3584,8 @@ def main() -> int:
                   "zoo": zoo[name],
                   "train_lm": train_lm[name],
                   "train_lm_gspmd": train_lm_gspmd[name],
+                  "train_lm_gspmd_zoo": train_lm_gspmd_zoo[name],
+                  "ops_matmul": ops_matmul[name],
                   "verify": verified[name]}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts
@@ -3352,7 +3605,7 @@ def main() -> int:
                           train["static"]["matmul"], tile),
              serve_rows=[r["shape"] for r in serve_rows["tile"]],
              train_lm_rows=[r["shape"] for r in train_lm_rows],
-             train_lm_step=train_lm_step),
+             train_lm_step=train_lm_step, ops_matmul_step=ops_step),
         skinny_entry(serve_rows["skinny"], serve_step,
                      serve["skinny_gemm"]["serve_bf16"], skinny),
         kernel_entry("wino_gemm",

@@ -822,18 +822,35 @@ def constrain_like(x, ref, *, tag: str):
     return x.redistribute(ref.device_mesh, ref.placements)
 
 
-def local_map(fn, mesh: DeviceMesh, in_specs, out_spec):
+def local_map(fn, mesh: DeviceMesh, in_specs, out_spec, *,
+              grad_sum_axes=None):
     """``fn`` run on each rank's blocks: its DTensor arguments must be
     placed by ``in_specs`` (``None`` for an argument that is not a
-    tensor), and its one output is placed by ``out_spec``.
+    tensor), and its one output is placed by ``out_spec`` (a list of
+    specs: its outputs, a tuple, each by its spec).
     Differentiable: autograd flows through ``fn``'s own backward (an
-    ``autograd.Function`` runs on plain blocks)."""
+    ``autograd.Function`` runs on plain blocks).  ``grad_sum_axes``
+    names, per argument, the mesh axes over which its gradient is a
+    pending sum (``Partial``): an argument replicated over axes that
+    split the work (a weight beside a batch split over data) gets only
+    its rank's share of the gradient there; ``None`` or ``()`` keeps the
+    argument's placements."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map as _lm
-    return _lm(fn, out_placements=placements(mesh, out_spec),
-               in_placements=tuple(None if s is None
-                                   else placements(mesh, s)
-                                   for s in in_specs),
-               device_mesh=mesh)
+    outs = (tuple(placements(mesh, s) for s in out_spec)
+            if isinstance(out_spec, list) else placements(mesh, out_spec))
+    ins = tuple(None if s is None else placements(mesh, s)
+                for s in in_specs)
+    grads = None
+    if grad_sum_axes is not None:
+        names = _mesh_dim_names(mesh)
+        grads = tuple(
+            None if p is None else tuple(
+                Partial() if names[i] in (axes or ()) else q
+                for i, q in enumerate(p))
+            for p, axes in zip(ins, grad_sum_axes))
+    return _lm(fn, out_placements=outs, in_placements=ins,
+               in_grad_placements=grads, device_mesh=mesh)
 
 
 def full_tensor(x, *, tag: str = "gspmd_gather") -> torch.Tensor:

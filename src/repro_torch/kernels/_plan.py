@@ -95,12 +95,26 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def block_tile(block_m: int, block_n: int):
+    """The tile a block plan's ``(block_m, block_n)`` launches: itself
+    where the core compiles that tile (a key of :data:`TILES`), else
+    ``None`` (:func:`gemm_plan` picks)."""
+    return (block_m, block_n) if (block_m, block_n) in TILES else None
+
+
 @functools.lru_cache(maxsize=4096)
-def gemm_plan(t: int, m: int, n: int, r: int, sms: int = 132) -> GemmPlan:
-    """The launch of ``[t, m, r] @ [t, r, n]`` on a card with ``sms`` SMs."""
-    tile = next(((tm, tn) for tm, tn in TILES
-                 if m >= tm and n >= tn
-                 and t * _cdiv(m, tm) * _cdiv(n, tn) >= sms), (64, 64))
+def gemm_plan(t: int, m: int, n: int, r: int, sms: int = 132,
+              tile=None) -> GemmPlan:
+    """The launch of ``[t, m, r] @ [t, r, n]`` on a card with ``sms`` SMs;
+    ``tile`` (a key of :data:`TILES`) fixes the block tile, whose split
+    is then cut by the same rule."""
+    if tile is not None and tuple(tile) not in TILES:
+        raise ValueError(f"the tile core compiles the tiles {list(TILES)}, "
+                         f"not {tile}")
+    tile = tuple(tile) if tile is not None else next(
+        ((tm, tn) for tm, tn in TILES
+         if m >= tm and n >= tn
+         and t * _cdiv(m, tm) * _cdiv(n, tn) >= sms), (64, 64))
     tm, tn = tile
     slab = TILES[tile]
     tiles = t * _cdiv(m, tm) * _cdiv(n, tn)

@@ -25,14 +25,16 @@ from repro_torch.kernels._plan import (gemm_plan, skinny_plan, skinny_route,
                                        sm_count)
 
 
-def launch_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def launch_gemm(a: torch.Tensor, b: torch.Tensor, tile=None
+                ) -> torch.Tensor:
     """Launch ``repro_gemm_f32`` on checked CUDA operands ``[M,K] @
     [K,N]`` as one batch entry, with the tile and the split reduction of
-    :func:`~repro_torch.kernels._plan.gemm_plan` (and its scratch)."""
+    :func:`~repro_torch.kernels._plan.gemm_plan` (and its scratch);
+    ``tile`` fixes the plan's tile."""
     lib = _build.load()
     t, (m, k), n = 1, a.shape, b.shape[1]
     out = a.new_empty(m, n)
-    plan = gemm_plan(t, m, n, k, sm_count(a.get_device()))
+    plan = gemm_plan(t, m, n, k, sm_count(a.get_device()), tile)
     scratch = a.new_empty(plan.scratch) if plan.scratch else None
     _build.check(lib, lib.repro_gemm_f32(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -75,9 +77,11 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, *, tile=None) -> torch.Tensor:
     """``[M,K] @ [K,N] -> [M,N]`` (x.dtype), f32 accumulation; on the card
-    float32 or bfloat16, both operands of one dtype.
+    float32 or bfloat16, both operands of one dtype.  ``tile`` (a key of
+    ``_plan.TILES``) fixes the tile core's tile; the skinny route and the
+    CPU do not read it.
 
     ``matmul.launches`` counts the launches of both kernels,
     ``matmul.skinny_launches`` those of the skinny GEMM alone."""
@@ -100,7 +104,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         out = launch_skinny(x, w)
         matmul.skinny_launches += 1
     else:
-        out = launch_gemm(x, w)
+        out = launch_gemm(x, w, tile)
     matmul.launches += 1
     return out
 

@@ -21,7 +21,9 @@ The conv menu:
   XLA outside any Pallas kernel.
 
 The matmul menu is ``pallas`` (the hand-written GEMM,
-``kernels.matmul``) vs ``xla`` (``torch.matmul``); Winograd's batched
+``kernels.matmul``) vs ``xla`` (``torch.matmul``); :func:`matmul`, the
+reference's public GEMM, takes the hand-written one at an explicit
+block plan; Winograd's batched
 tile GEMM has its own ``pallas`` (``kernels.winograd.wino_gemm``, the
 hand-written tensor-core kernel ``csrc/wino_gemm.cu``) / ``einsum``
 (``torch.bmm``) menu.  The candidate
@@ -47,9 +49,10 @@ import torch.nn.functional as F
 
 from repro_torch.device import pin_fp32, resolve_device
 from repro_torch.kernels import autotune
+from repro_torch.kernels import matmul as _kmatmul
+from repro_torch.kernels._plan import block_tile
 from repro_torch.kernels.conv2d import conv2d
 from repro_torch.kernels.gemm_conv import conv2d_im2col
-from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.winograd import (conv2d_winograd, winograd_applicable,
                                           wino_gemm as wino_gemm_kernel,
                                           wino_gemm_einsum)
@@ -117,10 +120,14 @@ def conv_plan(n: int, c: int, k: int, h: int, w: int, kh: int, kw: int):
 # --------------------------------------------------------------------------
 
 class _MatmulKernel(torch.autograd.Function):
+    """The raw GEMM wrapper (``kernels.matmul.matmul``), forward at the
+    tile core's ``tile`` (``None``: the plan's own)."""
+
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, tile=None):
         ctx.save_for_backward(x, w)
-        return matmul(x.detach().contiguous(), w.detach().contiguous())
+        return _kmatmul.matmul(x.detach().contiguous(),
+                               w.detach().contiguous(), tile=tile)
 
     @staticmethod
     def backward(ctx, g):
@@ -130,7 +137,7 @@ class _MatmulKernel(torch.autograd.Function):
         # transposed shapes get their own winner)
         dx = local_matmul(g, w.t().contiguous())
         dw = local_matmul(x.t().contiguous(), g)
-        return dx.to(x.dtype), dw.to(w.dtype)
+        return dx.to(x.dtype), dw.to(w.dtype), None
 
 
 class _ConvKernel(torch.autograd.Function):
@@ -382,6 +389,51 @@ def local_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = w.shape[1]
     impl = select_matmul_impl(m, n, k, dtype=x.dtype, device=x.device)
     return _run_matmul_impl(impl, x, w)
+
+
+def planned_blocks(m: int, n: int, k: int, block_m: int = 0,
+                   block_n: int = 0, block_k: int = 0) -> tuple:
+    """The block plan :func:`matmul` runs for ``[m,k] @ [k,n]``: the Eq. 4
+    plan (:func:`matmul_plan`) unless all three blocks are given, each
+    block clamped to its extent; a plan whose blocks do not divide the
+    extents is refused (``ValueError``), as the reference's
+    ``matmul_pallas`` refuses it."""
+    blocks = (block_m, block_n, block_k)
+    if any(b < 0 for b in blocks):
+        raise ValueError(f"block plan {blocks} has a negative block")
+    if not all(blocks):
+        blocks = matmul_plan(m, n, k)
+    bm, bn, bk = (min(b, e) for b, e in zip(blocks, (m, n, k)))
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"the block plan {blocks} (clamped {(bm, bn, bk)}) "
+                         f"does not divide [{m},{k}] @ [{k},{n}]")
+    return bm, bn, bk
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 0,
+           block_n: int = 0, block_k: int = 0) -> torch.Tensor:
+    """The reference's public GEMM: ``[m,k] @ [k,n]`` (x.dtype), f32
+    accumulation, at an explicit ``(block_m, block_n, block_k)`` plan
+    (:func:`planned_blocks`: the Eq. 4 plan by default, refused where it
+    does not divide); differentiable, its dX and dW re-dispatched through
+    :func:`local_matmul`, as the reference's ``_matmul_pallas_bwd``.
+
+    The forward always launches the hand-written GEMM on a CUDA tensor
+    (the plain version on a CPU one), whatever the selector would pick.
+    A Pallas block ``(block_m, block_n)`` is the output tile that stays
+    resident: on the tile-core route it becomes the launch's tile where
+    the core compiles one (``_plan.TILES``: 128x128, 64x64;
+    ``_plan.block_tile``), and the launch takes ``_plan.gemm_plan``'s own
+    tile otherwise.  ``block_k`` is a streaming depth, while the core
+    compiles its slab depth in: it is validated and does not change the
+    launch.  The skinny route (bfloat16, or float32 of at most
+    ``_plan.SKINNY_M`` rows) keeps ``_plan.skinny_plan``."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"matmul needs [m,k] @ [k,n], got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    (m, k), n = x.shape, w.shape[1]
+    bm, bn, _ = planned_blocks(m, n, k, block_m, block_n, block_k)
+    return _MatmulKernel.apply(x, w, block_tile(bm, bn))
 
 
 def local_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=(1, 1),

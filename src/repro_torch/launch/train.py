@@ -1,7 +1,8 @@
 """The trainer -- the port of ``repro/launch/train.py``.  Two drivers
 behind ``--mesh``:
 
-* ``--mesh host`` (default): the dense LM trainer -- the synthetic data
+* ``--mesh host`` (default): the dense LM trainer, for every family
+  ``--arch`` names (the encdec's batches carry frames) -- the synthetic data
   pipeline (``data/pipeline.py``, prefetched on a thread), the train step
   (``train/step.py``, ``mode="gspmd"``, AdamW under a cosine schedule),
   checkpoints every ``--ckpt-every`` steps, the straggler monitor, and a

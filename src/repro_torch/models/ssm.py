@@ -22,6 +22,15 @@ each chunk in reverse; :class:`_SlstmScan` accumulates the recurrent
 weight's gradient per batch element and sums over the batch once after
 the loop.  The in-place decode update is never on that path: training
 runs the chunked form on fresh states.
+
+Under the GSPMD pins (``layers.set_attention_mesh``, set by
+``train.step.place_gspmd``) both recurrences run on each rank's blocks
+through ``dist.collectives.local_map``, as the pinned flash branch does:
+their inputs pinned batch over the data axes and replicated over model,
+the ``Function`` or the no-grad loop on plain blocks, the outputs placed
+the same way (:func:`_pinned_recurrence`).  The reference leaves this to
+XLA's propagation through its two custom VJPs; the pins are the port's
+own, and they change no value.
 """
 
 from __future__ import annotations
@@ -31,7 +40,35 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers
 from repro_torch.models.layers import _init
+
+# ------------------------------------------------------ under a pinned mesh --
+
+def _pinned_recurrence(local, ins, out_shapes, weights: int = 0):
+    """``local(*ins)`` on each rank's blocks under the pinned mesh, as
+    the pinned flash branch runs (``layers._pinned_flash``): each input
+    pinned batch over the data axes and replicated over model
+    (``layers.replicate_model``'s spec), its outputs (of the global
+    ``out_shapes``) placed the same way.  Sound because the batch rows
+    of both recurrences are independent.  ``ins[1:1 + weights]`` are
+    weights shared by every row (the sLSTM's ``r`` and ``bias``):
+    pinned whole on every rank, and their gradient a pending sum over
+    the axes that split the batch."""
+    from repro_torch.dist.collectives import local_map
+    shared = range(1, 1 + weights)
+    specs = [(None,) * t.dim() if i in shared
+             else layers._replicate_spec(t.shape) for i, t in enumerate(ins)]
+    pinned = [layers._pin(t, spec, "replicate_model")
+              for t, spec in zip(ins, specs)]
+    bspec = layers._b_spec(ins[0].shape[0])
+    axes = () if bspec is None else (
+        (bspec,) if isinstance(bspec, str) else tuple(bspec))
+    grad_axes = [axes if i in shared else () for i in range(len(ins))]
+    return local_map(local, layers._ATTN_MESH["mesh"], specs,
+                     [layers._replicate_spec(s) for s in out_shapes],
+                     grad_sum_axes=grad_axes)(*pinned)
+
 
 # ----------------------------------------------------------- chunked CLR --
 
@@ -113,6 +150,16 @@ class _ClrScan(torch.autograd.Function):
         return dq, dk, dv, dlf, dli, dS, None
 
 
+def _clr(q, k, v, lf, li, S, chunk):
+    """(y [B,S,H,P] f32, final state) of the chunk loop from state ``S``:
+    through :class:`_ClrScan` when an input needs a gradient."""
+    ins = (q, k, v, lf, li, S)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _ClrScan.apply(*ins, chunk)
+    y, S, _ = _clr_chunks(*ins, chunk)
+    return y, S
+
+
 def chunked_linear_recurrence(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, lf: torch.Tensor,
                               li: torch.Tensor, *, chunk: int,
@@ -122,20 +169,25 @@ def chunked_linear_recurrence(q: torch.Tensor, k: torch.Tensor,
 
     Returns (y [B,S,H,P] in v's dtype, final_state [B,H,N,P] f32).
     ``state0`` is read, never written.  Differentiable through
-    :class:`_ClrScan` when an input needs a gradient."""
+    :class:`_ClrScan` when an input needs a gradient.  Under a pinned
+    mesh (:func:`_pinned_recurrence`) it runs on each rank's blocks."""
     b, s, h, n = q.shape
     p = v.shape[-1]
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
     lf, li = lf.float(), li.float()
-    S = (torch.zeros((b, h, n, p), dtype=torch.float32, device=q.device)
-         if state0 is None else state0.float())
-    ins = (q, k, v, lf, li, S)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        y, S = _ClrScan.apply(*ins, chunk)
-    else:
-        y, S, _ = _clr_chunks(*ins, chunk)
-    return y.to(v.dtype), S
+
+    def local(ql, kl, vl, lfl, lil, s0=None):
+        S = (torch.zeros((ql.shape[0], h, n, p), dtype=torch.float32,
+                         device=ql.device)
+             if s0 is None else s0.float())
+        y, S = _clr(ql, kl, vl, lfl, lil, S, chunk)
+        return y.to(vl.dtype), S
+
+    ins = (q, k, v, lf, li) + (() if state0 is None else (state0,))
+    if layers._ATTN_MESH["mesh"] is not None:
+        return _pinned_recurrence(local, ins, [(b, s, h, p), (b, h, n, p)])
+    return local(*ins)
 
 
 def linear_recurrence_step(q, k, v, lf, li, state):
@@ -166,6 +218,13 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     apart on a third of the inputs, which six Mamba2 layers amplify to
     8e-2 of max|logit| against the reference)."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``, ``-logaddexp(-x, 0)``: the same operations
+    as ``F.logsigmoid``'s ``min(x, 0) - log1p(exp(-|x|))``, in ops that
+    DTensor differentiates (it has no rule for ``log_sigmoid_backward``)."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
@@ -216,10 +275,11 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv, width K.  x: [B,S,C]; w: [K,C].
     state: [B,K-1,C] trailing context.  Returns (y, new_state)."""
     kk = w.shape[0]
-    pad = (torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
-                       device=x.device)
-           if state is None else state.to(x.dtype))
-    xp = torch.cat([pad, x], dim=1)
+    # zero rows as zeros_like of x's own rows: placed as x under the
+    # GSPMD pins (F.pad's DTensor rule in torch 2.11 drops a mesh dim)
+    pad = ([torch.zeros_like(x[:, :1])] * (kk - 1) if state is None
+           else [state.to(x.dtype)])
+    xp = torch.cat(pad + [x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
             for i in range(kk))
     return _silu(y), xp[:, -(kk - 1):, :]
@@ -304,12 +364,11 @@ def mlstm_block(params: Dict, x: torch.Tensor, *, expand: int, n_heads: int,
     k = (xi @ params["wk"]).reshape(b, s, n_heads, hd) * hd ** -0.5
     v = (xi @ params["wv"]).reshape(b, s, n_heads, hd)
     gates = xi.float() @ params["gates"]                           # [B,S,2H]
-    lf = F.logsigmoid(gates[..., :n_heads])                        # forget
-    li = F.logsigmoid(gates[..., n_heads:])                        # input
+    lf = _log_sigmoid(gates[..., :n_heads])                        # forget
+    li = _log_sigmoid(gates[..., n_heads:])                        # input
 
     # normalizer trick: append a ones column to v
-    v_ext = torch.cat([v, torch.ones((*v.shape[:-1], 1), dtype=v.dtype,
-                                     device=v.device)], dim=-1)
+    v_ext = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     st = ssm_state or {}
     if decode:
         y_ext, S = linear_recurrence_step(q[:, 0], k[:, 0], v_ext[:, 0],
@@ -399,15 +458,32 @@ class _SlstmScan(torch.autograd.Function):
 
 def _slstm_scan(pre, r, bias, carry0):
     """The reference's ``_slstm_scan``: pre: [B,S,H,4hd] f32; r:
-    [H,hd,4hd] f32; bias: [H,4hd] f32; carry0: (c,n,h) each [B,H,hd] f32.
-    Returns (hs [B,S,H,hd], carry).  Differentiable through
-    :class:`_SlstmScan` when an input needs a gradient."""
-    ins = (pre, r, bias) + tuple(carry0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        hs, c, n, h = _SlstmScan.apply(*ins)
-        return hs, (c, n, h)
-    cs, ns, hs = _slstm_loop(*ins)
-    return hs.transpose(0, 1), (cs[-1], ns[-1], hs[-1])
+    [H,hd,4hd] f32; bias: [H,4hd] f32; carry0: (c,n,h) each [B,H,hd] f32,
+    or ``None`` for zeros.  Returns (hs [B,S,H,hd], carry).
+    Differentiable through :class:`_SlstmScan` when an input needs a
+    gradient.  Under a pinned mesh (:func:`_pinned_recurrence`) it runs
+    on each rank's blocks, ``r`` and ``bias`` whole on every rank."""
+    b, s, nh, hd4 = pre.shape
+
+    def local(pre_l, r_l, bias_l, *carry):
+        if not carry:
+            zeros = torch.zeros((pre_l.shape[0], nh, hd4 // 4),
+                                dtype=torch.float32, device=pre_l.device)
+            carry = (zeros, zeros, zeros)
+        ins = (pre_l, r_l, bias_l) + tuple(carry)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+            return _SlstmScan.apply(*ins)
+        cs, ns, hs = _slstm_loop(*ins)
+        return hs.transpose(0, 1), cs[-1], ns[-1], hs[-1]
+
+    ins = (pre, r, bias) + (() if carry0 is None else tuple(carry0))
+    if layers._ATTN_MESH["mesh"] is not None:
+        hs, c, n, h = _pinned_recurrence(
+            local, ins, [(b, s, nh, hd4 // 4)] + [(b, nh, hd4 // 4)] * 3,
+            weights=2)
+    else:
+        hs, c, n, h = local(*ins)
+    return hs, (c, n, h)
 
 
 def init_slstm(generator, d_model: int, *, n_heads: int,
@@ -436,14 +512,14 @@ def slstm_block(params: Dict, x: torch.Tensor, *, n_heads: int,
     r = params["r"].float()
     bias = params["bias"].reshape(n_heads, 4 * hd)
 
-    if ssm_state is None:
-        zeros = torch.zeros((b, n_heads, hd), dtype=torch.float32,
-                            device=x.device)
-        carry = (zeros, zeros, zeros)
-    else:
-        carry = (ssm_state["c"], ssm_state["n"], ssm_state["h"])
+    carry = (None if ssm_state is None
+             else (ssm_state["c"], ssm_state["n"], ssm_state["h"]))
 
     if decode:
+        if carry is None:
+            zeros = torch.zeros((b, n_heads, hd), dtype=torch.float32,
+                                device=x.device)
+            carry = (zeros, zeros, zeros)
         c, n, h = carry
         gates = pre[:, 0] + torch.einsum("bhd,hdk->bhk", h, r) + bias
         carry = _slstm_gates(gates, c, n)

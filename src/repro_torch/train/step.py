@@ -18,7 +18,9 @@ updated in place).  ``mode`` is the reference's (:data:`MODES`):
   collectives XLA would), redistributes each gradient to its parameter's
   placements -- the reduce-scatter / all-reduce the reference's XLA
   emits -- and updates the placed parameters and AdamW moments; ``loss``,
-  ``grad_norm`` and ``step`` come out replicated, as plain tensors.  With
+  ``grad_norm`` and ``step`` come out replicated, as plain tensors.
+  Every family runs so: the recurrences of the ssm and hybrid families
+  run on each rank's blocks (``models.ssm._pinned_recurrence``).  With
   ``compress_axis=`` (and the mesh that names it) each rank's gradients
   of plain parameters are mean-reduced over that axis by
   ``dist.compress.compressed_psum_tree`` (int8, error feedback carried in
@@ -38,7 +40,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -59,12 +60,6 @@ PLACE_FIRST = ("mode='gspmd' on more than one rank needs placed state: "
                "place the parameters and the batch with "
                "train.step.place_gspmd (or pass compress_axis= for data "
                "parallelism on plain parameters)")
-
-#: The families whose gspmd step runs on placed state; the recurrences'
-#: ``autograd.Function``s (``ssm._ClrScan``, ``ssm._SlstmScan``) take no
-#: DTensor yet (ROADMAP Queue 1 item 3(e)).
-GSPMD_FAMILIES = ("dense", "moe", "vlm")
-
 
 class GspmdPlacement(NamedTuple):
     """What :func:`place_gspmd` assembles: the placed state, the mesh, the
@@ -102,11 +97,6 @@ def place_gspmd(cfg, mesh, state: TrainState, batch: Dict, *,
     from repro_torch.models import layers as L
     from repro_torch.parallel import sharding as shd
 
-    if cfg.family not in GSPMD_FAMILIES and math.prod(mesh.shape) > 1:
-        raise NotImplementedError(
-            f"the {cfg.family} family's gspmd step on more than one rank "
-            f"is not carried yet: its recurrences' autograd Functions take "
-            f"no DTensor (ROADMAP Queue 1 item 3(e))")
     if hbm_bytes is None or mem_elems is None:
         dev_bytes, dev_elems = shd.device_budget(mesh.device_type)
         hbm_bytes = dev_bytes if hbm_bytes is None else hbm_bytes

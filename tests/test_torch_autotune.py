@@ -378,3 +378,122 @@ def test_warm_tunes_the_layer_table_and_persists(tuner):
         table["matmul_256x256x256"]["impl"]
     tuner.reset()
     assert autotune.warm(batch=1, layers=["res5a_2b"], device="cpu") == table
+
+
+# ================================ the public GEMM at an explicit plan ===
+
+# (m, k, n, (block_m, block_n, block_k)): the reference's own test shape
+# (tests/test_autotune.py) at its default plan, then a larger shape at its
+# default plan, the two tiles the tile core compiles, and one it does not
+PUBLIC_MATMUL_CASES = [
+    (16, 24, 8, (0, 0, 0)),
+    (128, 256, 128, (0, 0, 0)),
+    (128, 256, 128, (128, 128, 128)),
+    (128, 256, 128, (64, 64, 64)),
+    (128, 256, 128, (32, 64, 128)),
+]
+
+
+@pytest.mark.parametrize("m,k,n,blocks", PUBLIC_MATMUL_CASES)
+def test_public_matmul_matches_reference(m, k, n, blocks, tuner):
+    """``ops.matmul`` against the reference's ``kops.matmul`` (its Pallas
+    kernel in interpret mode): the value and the gradients of
+    ``sum(y ** 2)``, both packages' backward re-dispatched through
+    ``local_matmul`` at the static plan."""
+    bm, bn, bk = blocks
+    x, w = _normal(11, m, k), _normal(12, k, n)
+    with jautotune.autotune_disabled():
+        fn = lambda a, b: jops.matmul(a, b, block_m=bm, block_n=bn,  # noqa
+                                      block_k=bk)
+        want = fn(jnp.asarray(x), jnp.asarray(w))
+        gx, gw = jax.grad(lambda a, b: jnp.sum(fn(a, b) ** 2), (0, 1))(
+            jnp.asarray(x), jnp.asarray(w))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    with autotune.autotune_disabled():
+        got = ops.matmul(tx, tw, block_m=bm, block_n=bn, block_k=bk)
+        (got ** 2).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **FWD_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), **GRAD_TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(gw), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (16, 24, 8, (16, 8, 16)),          # block_k does not divide k
+    (64, 512, 1000, (128, 128, 128)),  # the CNN head: 128 and n = 1000
+])
+def test_public_matmul_refuses_what_the_reference_refuses(m, k, n, blocks):
+    bm, bn, bk = blocks
+    x, w = _normal(13, m, k), _normal(14, k, n)
+    with pytest.raises(AssertionError):
+        jops.matmul(jnp.asarray(x), jnp.asarray(w), block_m=bm, block_n=bn,
+                    block_k=bk)
+    with pytest.raises(ValueError, match="does not divide"):
+        ops.matmul(torch.from_numpy(x), torch.from_numpy(w), block_m=bm,
+                   block_n=bn, block_k=bk)
+
+
+def test_public_matmul_plan_and_tile_choice():
+    """The pure choice on the CPU: the default plan is ``matmul_plan``'s;
+    blocks clamp to their extents; the clamped ``(block_m, block_n)``
+    becomes the launch's tile where the core compiles it, and the launch
+    keeps ``gemm_plan``'s own tile otherwise; the fixed tile's split
+    follows the plan's rule."""
+    from repro_torch.kernels import _plan
+
+    assert ops.planned_blocks(512, 2048, 8192) == ops.matmul_plan(512, 2048,
+                                                                  8192)
+    assert ops.planned_blocks(64, 1000, 512) == ops.matmul_plan(64, 1000,
+                                                                512)
+    assert ops.planned_blocks(16, 8, 24, 128, 128, 128) == (16, 8, 24)
+    assert ops.planned_blocks(16, 8, 24, 128, 0, 128) == \
+        ops.matmul_plan(16, 8, 24)
+    with pytest.raises(ValueError, match="negative"):
+        ops.planned_blocks(16, 8, 24, -8, 8, 8)
+    assert _plan.block_tile(128, 128) == (128, 128)
+    assert _plan.block_tile(64, 64) == (64, 64)
+    assert _plan.block_tile(64, 128) is None
+    assert _plan.block_tile(32, 32) is None
+    # [2048,512] @ [512,8192] (llama3.2-1b's w_up dW at 512 tokens): the
+    # plan's own tile is 128x128 at 132 SMs; [512,2048] @ [2048,2048]'s
+    # 64x64 (64 tiles of 128x128 would not fill the card)
+    own = _plan.gemm_plan(1, 2048, 8192, 512, 132)
+    small = _plan.gemm_plan(1, 2048, 8192, 512, 132, (64, 64))
+    assert own.tile == (128, 128) and small.tile == (64, 64)
+    assert small.grid[:2] == (32, 128) and small.slab == _plan.TILES[(64, 64)]
+    assert _plan.gemm_plan(1, 2048, 8192, 512, 132, (128, 128)) == own
+    own = _plan.gemm_plan(1, 512, 2048, 2048, 132)
+    big = _plan.gemm_plan(1, 512, 2048, 2048, 132, (128, 128))
+    assert own.tile == (64, 64) and big.tile == (128, 128)
+    assert big.grid[:2] == (4, 16) and big.slab == _plan.TILES[(128, 128)]
+    assert big.splits > 1 and big.splits * big.chunk >= 2048 \
+        > (big.splits - 1) * big.chunk
+    with pytest.raises(ValueError, match="compiles"):
+        _plan.gemm_plan(1, 512, 2048, 2048, 132, (32, 32))
+
+
+def test_matmul_kernel_launches_the_raw_wrapper(monkeypatch):
+    """``_MatmulKernel`` (the selector's ``pallas`` candidate) still calls
+    the raw wrapper ``kernels.matmul.matmul``, at the plan's own tile;
+    ``ops.matmul`` calls it at its block tile, and its backward's two
+    products through ``local_matmul`` at their own."""
+    calls = []
+    raw = ops._kmatmul.matmul
+
+    def spy(x, w, *, tile=None):
+        calls.append((tuple(x.shape), tuple(w.shape), tile))
+        return raw(x, w, tile=tile)
+
+    monkeypatch.setattr(ops._kmatmul, "matmul", spy)
+    x, w = torch.randn(64, 128), torch.randn(128, 64)
+    with autotune.autotune_disabled():
+        ops.local_matmul(x, w)
+        assert calls == [((64, 128), (128, 64), None)]
+        calls.clear()
+        xg = x.clone().requires_grad_(True)
+        ops.matmul(xg, w.clone().requires_grad_(True), block_m=64,
+                   block_n=64, block_k=32).sum().backward()
+    assert calls == [((64, 128), (128, 64), (64, 64)),
+                     ((64, 64), (64, 128), None),
+                     ((128, 64), (64, 64), None)]

@@ -64,3 +64,20 @@ def test_two_ranks_train_resume_and_match_one_rank(tmp_path, capfd):
     assert "[train] preempted at step 5" in out
     assert "[train] resumed from step 5" in out
     assert "[train] final checkpoint at 8" in out
+
+
+def test_two_ranks_train_a_zoo_model_as_one_rank(capfd):
+    """The hybrid family (the smoke zamba2-7b, Mamba2 recurrences and the
+    shared attention block) on ``--ranks 2`` follows ``--ranks 1``: the
+    first loss to 1e-6 and the next to bf16 rounding."""
+    from repro_torch.launch import train
+    args = ["--arch", "zamba2-7b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "4", "--seq", "16", "--log-every", "1"]
+    two = train.main(args + ["--ranks", "2"])
+    one = train.main(args)
+    assert len(two["losses"]) == len(one["losses"]) == 2
+    assert _rel(two["losses"][0], one["losses"][0]) <= 1e-6
+    assert _rel(two["losses"], one["losses"]).max() <= BF16_RTOL
+    out = capfd.readouterr().out
+    assert "zamba2-7b (smoke) ranks=2 device=cpu" in out
+    assert "[train] mesh={'data': 2, 'model': 1}" in out

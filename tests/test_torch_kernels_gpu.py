@@ -57,6 +57,37 @@ def test_matmul_kernel_matches_plain(cuda_device, m, k, n):
                                atol=1e-4)
 
 
+# ops.matmul, the reference's public GEMM, at its default plan and the two
+# tiles the tile core compiles: one forward launch at the plan's tile and
+# the backward's two through local_matmul (the static plan), no library
+# call; value and gradients of sum(y ** 2) against autograd through the
+# plain version, the tolerance scaled by max|plain| as for the conv
+@pytest.mark.parametrize("blocks", [(0, 0, 0), (128, 128, 128),
+                                    (64, 64, 64)])
+def test_public_matmul_launches_the_gemm_at_its_tile(cuda_device, blocks):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import autotune_disabled
+
+    bm, bn, bk = blocks
+    xs = torch.from_numpy(_normal(11, 256, 512)).to(cuda_device)
+    ws = torch.from_numpy(_normal(12, 512, 384)).to(cuda_device)
+    grads = []
+    for fn in (lambda a, b: ops.matmul(a, b, block_m=bm, block_n=bn,
+                                       block_k=bk), matmul_plain):
+        x, w = xs.clone().requires_grad_(True), ws.clone().requires_grad_(True)
+        before = matmul.launches
+        with autotune_disabled():
+            y = fn(x, w)
+            (y ** 2).sum().backward()
+        torch.cuda.synchronize()
+        grads.append((y.detach(), x.grad, w.grad, matmul.launches - before))
+    (y, gx, gw, launches), (py, pgx, pgw, plain_launches) = grads
+    assert launches == 3 and plain_launches == 0
+    for got, want in ((y, py), (gx, pgx), (gw, pgw)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
 # two im2col dKer products, whose long reduction over few output tiles is
 # split over the card: sums of 12544-50176 unit-normal products, so the
 # tolerance scales with max|plain| as for the conv

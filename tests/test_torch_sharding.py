@@ -22,13 +22,15 @@ GSPMD step as ``launch/dryrun.py::build_train`` assembles it
 with those shardings), executed, concurrently; its programs are compiled
 at LLVM optimization level 0 (``--xla_backend_optimization_level=0``),
 which takes 40% less compile time on these small programs.  The weights are the
-reference's ``init_lm`` draws, converted by ``models/convert.py``.
+reference's draws (each family's ``init``), converted by
+``models/convert.py``; the encdec's batches carry frames.
 Tolerances: each step's loss within 1e-4 relative and the step-1
 gradients within 1e-3 of max|g| per tensor, of both the port's one-rank
 plain step and the reference's GSPMD step (a ``Partial`` over two mesh
 dims is summed in another order than one rank's sums).
 """
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -275,10 +277,23 @@ def _cfg(arch, fsdp):
 
 
 def _batches(cfg, batch, seq):
+    """Two batches of the ported pipeline (the encdec's with frames)."""
     from repro_torch.data import pipeline as tpipe
     ds = tpipe.SyntheticTokens(tpipe.DataConfig(
-        global_batch=batch, seq_len=seq, vocab=cfg.vocab, seed=3))
+        global_batch=batch, seq_len=seq, vocab=cfg.vocab, seed=3,
+        frames=cfg.family == "encdec", d_model=cfg.d_model))
     return [ds.batch_at(i) for i in range(2)]
+
+
+def _convert(params_np, cfg):
+    """The reference's parameter (or gradient) tree of ``cfg``'s family
+    as the port's, by ``models/convert.py``."""
+    from repro_torch.models import convert
+    fn = {"ssm": convert.ssm_lm_params_from_jax,
+          "hybrid": convert.hybrid_params_from_jax,
+          "encdec": convert.encdec_params_from_jax}.get(
+        cfg.family, convert.lm_params_from_jax)
+    return fn(params_np, cfg, device="cpu")
 
 
 def _layout_input():
@@ -307,23 +322,23 @@ def _unflat(flat):
 
 
 def _plain_run(cfg, params_np, batches, mesh=None, hbm_bytes=None,
-               micro=False):
+               micro=False, nograd=False):
     """Two AdamW steps and the step-1 gradients of the port: plain on one
     rank, or placed by ``place_gspmd`` on ``mesh``.  Returns the losses,
     the gathered step-1 gradients, and (placed) the local and the full
     element count of every parameter with its spec and its gradient's;
     with ``micro``, also the loss and gradient norm of one step of two
-    microbatches."""
+    microbatches; with ``nograd``, also the step-1 loss without
+    autograd."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.data.pipeline import to_torch
     from repro_torch.dist import collectives as C
-    from repro_torch.models import lm as tlm
-    from repro_torch.models.convert import lm_params_from_jax
+    from repro_torch.models.api import model_fns
     from repro_torch.train import optim as toptim
     from repro_torch.train import step as tstep
 
-    params = lm_params_from_jax(params_np, cfg, device="cpu")
+    params = _convert(params_np, cfg)
     opt = toptim.AdamW(lr=LR)
     batches = [to_torch(b, "cpu") for b in batches]
     out = {}
@@ -341,7 +356,13 @@ def _plain_run(cfg, params_np, batches, mesh=None, hbm_bytes=None,
                         for p, s in zip(flat, specs)]
     else:
         state = tstep.init_train_state(params, opt)
-    loss_fn = lambda p, b: tlm.loss_lm(p, cfg, b)  # noqa: E731
+    loss_fn = lambda p, b: model_fns(cfg).loss(p, cfg, b)  # noqa: E731
+    if nograd:
+        region = (C.replicated_region() if mesh is not None
+                  else contextlib.nullcontext())
+        with torch.no_grad(), region:
+            out["nograd_loss"] = float(C.full_tensor(
+                loss_fn(state.params, batches[0])))
     with C.record_collectives() as notes, C.count_collectives() as comm:
         _, grads = tstep._value_and_grad(loss_fn, state.params, batches[0],
                                          mesh is not None)
@@ -365,7 +386,7 @@ def _plain_run(cfg, params_np, batches, mesh=None, hbm_bytes=None,
     return out
 
 
-def gloo_rank(rank, inputs, cases, micro=()):
+def gloo_rank(rank, inputs, cases, micro=(), nograd=()):
     """Every case placed on its mesh; the plain-state refusal; the layout
     of ``place`` at this rank's mesh coordinate.  One thread a rank: the
     smoke models' ops are too small to share, and idle threads spinning
@@ -384,7 +405,8 @@ def gloo_rank(rank, inputs, cases, micro=()):
         try:
             out[name] = _plain_run(cfg, inputs[arch], _batches(cfg, batch,
                                                                seq),
-                                   mesh, hbm, name in micro)
+                                   mesh, hbm, name in micro,
+                                   name in nograd)
         finally:
             L.set_attention_mesh(None)
     cfg = _cfg("llama3.2-1b", False)
@@ -441,7 +463,9 @@ _JAX_GSPMD = textwrap.dedent("""
         mesh = Mesh(np.array(jax.devices()).reshape(grid), ("data", "model"))
         params = unflat(arch)
         ds = SyntheticTokens(DataConfig(global_batch=batch, seq_len=seq,
-                                        vocab=cfg.vocab, seed=3))
+                                        vocab=cfg.vocab, seed=3,
+                                        frames=cfg.family == "encdec",
+                                        d_model=cfg.d_model))
         batches = [{k: jnp.asarray(v) for k, v in ds.batch_at(i).items()}
                    for i in range(2)]
         # launch/dryrun.py::build_train's assembly
@@ -491,22 +515,24 @@ _JAX_GSPMD = textwrap.dedent("""
 """)
 
 
-def run_cases(tmp_path_factory, cases, micro=()):
+def run_cases(tmp_path_factory, cases, micro=(), nograd=()):
     """The 4-rank gloo launch (:func:`gloo_rank`), the one-rank plain runs
     and, concurrently, the 4-device JAX subprocess, for ``cases``; the
-    cases named in ``micro`` also take a step of two microbatches."""
+    cases named in ``micro`` also take a step of two microbatches, those
+    in ``nograd`` a loss without autograd."""
     import json
 
     import jax
 
     from repro.configs import get_config as jget
-    from repro.models import lm as jlm
+    from repro.models.api import model_fns as jmodel_fns
     from repro_torch.dist.spawn import run_spmd
 
     archs = sorted({c[1] for c in cases})
-    inputs = {a: jax.tree_util.tree_map(np.asarray, jlm.init_lm(
-        jax.random.PRNGKey(0), dataclasses.replace(
-            jget(a, smoke=True), dtype="float32"))) for a in archs}
+    jcfgs = {a: dataclasses.replace(jget(a, smoke=True), dtype="float32")
+             for a in archs}
+    inputs = {a: jax.tree_util.tree_map(np.asarray, jmodel_fns(c).init(
+        jax.random.PRNGKey(0), c)) for a, c in jcfgs.items()}
     tmp = tmp_path_factory.mktemp("torch_gspmd")
     npz = {f"{a}|{k}": v for a in archs for k, v in _flat(inputs[a]).items()}
     npz["layout"] = _layout_input()
@@ -520,10 +546,12 @@ def run_cases(tmp_path_factory, cases, micro=()):
          json.dumps([cases, LAYOUT_SPECS, LR])],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        port = run_spmd(gloo_rank, 4, inputs, cases, micro, device="cpu")
+        port = run_spmd(gloo_rank, 4, inputs, cases, micro, nograd,
+                        device="cpu")
         plain = {name: _plain_run(_cfg(arch, fsdp), inputs[arch],
                                   _batches(_cfg(arch, fsdp), batch, seq),
-                                  micro=name in micro)
+                                  micro=name in micro,
+                                  nograd=name in nograd)
                  for name, arch, _, batch, seq, fsdp, _ in cases}
         _, err = ref.communicate(timeout=600)
     finally:
@@ -548,12 +576,11 @@ def _jax_grads(runs, name, arch, fsdp):
     """The reference's step-1 gradients in the port's leaf order."""
     from torch.utils import _pytree as pytree
 
-    from repro_torch.models.convert import lm_params_from_jax
     prefix = name + "|grad|"
     tree = _unflat({k[len(prefix):]: v for k, v in runs["jax"].items()
                     if k.startswith(prefix)})
     return [g.numpy() for g in pytree.tree_leaves(
-        lm_params_from_jax(tree, _cfg(arch, fsdp), device="cpu"))]
+        _convert(tree, _cfg(arch, fsdp)))]
 
 
 def check_one_rank(runs, case):
