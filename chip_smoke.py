@@ -259,6 +259,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    lints gate, the memory band included, and the phase's launches of
    all four kernels, read whole, must be the count the cells give.
 
+13. the production dry run (``repro_torch.launch.dryrun``) and the
+   placed serve steps (``train.step.place_serve``): (a) llama3.2-1b at
+   full width and depth in float32 on a one-rank ``("data", "model")`` =
+   (1, 1) mesh (nccl, world 1), ``DRYRUN_SLOTS`` prompts of
+   ``DRYRUN_PROMPT`` tokens prefilled at once, then ``DRYRUN_STEPS``
+   decode steps, every parameter and cache leaf a DTensor, teacher-forced
+   on random tokens against the dense serve path of phase 8
+   (``_teacher_forced``) within ``TF_RTOL`` of max|logit|; the same for
+   zamba2-7b cut to ``ZOO_CUT_LAYERS`` layers against its plain prefill
+   and decode; no kernel launched; (b) two real steps against the dry
+   run of the same config, batch and mesh (a fake process group of one
+   rank, ``meta`` blocks, ``launch.op_analysis``): (a)'s decode step and
+   phase 11 (f)'s placed train step (llama3.2-1b at ``LM_GSPMD_LAYERS``
+   layers, f32, ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``).  Gated: argument
+   bytes equal to the real placed state's, dot FLOPs equal to
+   ``torch.utils.flop_counter``'s count of the real step (on one rank
+   the global count is the local one), the predicted peak (arguments +
+   the dry run's temporaries) over the allocator's peak (the state's
+   bytes plus what the step added to ``memory_allocated``) within
+   ``DRYRUN_PEAK_BAND``; the roofline terms printed beside the step's
+   p50 and device-busy (``{"phase": "dryrun", "step": ...}``); (c)
+   llama3.2-1b ``train_4k`` and ``decode_32k`` on the fake 16x16 mesh
+   at full width (``launch.dryrun.run_cell``), each record printed with
+   its seconds (``{"phase": "dryrun", "cell": ...}``).
+
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 with code 2 and prints no result.
@@ -360,6 +385,12 @@ LM_TRAIN_LR = 1e-3
 FLASH_SEQ = 4096   # above the flash threshold: S * S > 2048 ** 2
 # phase 12: the schedule verifier, each cell in every schedule
 VERIFY_SCHEDULES = ("allgather", "ring", "ring2")
+DRYRUN_SLOTS, DRYRUN_PROMPT, DRYRUN_STEPS = 8, 64, 8
+#: predicted peak / the allocator's peak, phase 13 (b): the dry run counts
+#: each storage its ops make by its exact bytes; the allocator rounds
+#: each block up to 512 bytes and adds the step's cuBLAS workspace
+DRYRUN_PEAK_BAND = (0.95, 1.05)
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3450,6 +3481,293 @@ def verify_phase(card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the production dry run and the placed serve steps
+# --------------------------------------------------------------------------
+
+def _meta_like(tree):
+    """Nested dicts of tensors as ``meta`` tensors of the same shapes."""
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    return None if tree is None else torch.empty_like(tree, device="meta")
+
+
+def _placed_bytes(tree) -> int:
+    """Bytes of this rank's blocks of every tensor in ``tree``."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.dist.collectives import local_part
+    return _nbytes([local_part(t) for t in pytree.tree_leaves(tree)
+                    if isinstance(t, torch.Tensor)])
+
+
+def _measured_step(run, arg_bytes: int, steps: int = 3):
+    """A real step measured: its dot FLOPs (``FlopCounterMode``, the
+    first call), the allocator's peak over one call (the state's
+    ``arg_bytes`` plus what the call added to ``memory_allocated``),
+    the p50 of ``steps`` timed calls and one profiled call."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = arg_bytes + torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = _profile(run, 1, "steps")
+    return {"dot_flops": float(fc.get_total_flops()),
+            "argument_bytes": arg_bytes, "peak_bytes": peak,
+            "step_ms": times, "p50_ms": statistics.median(times),
+            "device_busy_ms": prof["device_busy_ms"],
+            "profiled_wall_ms": prof["wall_ms"]}
+
+
+def _placed_serve_run(cfg, params, prompts, forced, mesh, device):
+    """The prompts prefilled at once and ``len(forced[0]) - 1`` decode
+    steps fed ``forced``, on state placed by ``place_serve``: the logits
+    [slots, V] of every step, then one more decode step measured
+    (:func:`_measured_step`)."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.models.api import model_fns
+    from repro_torch.train.step import place_serve, serve_step
+
+    toks = torch.tensor(prompts, dtype=torch.int32, device=device)
+    cache = model_fns(cfg).init_cache(cfg, len(prompts), SERVE_MAX_SEQ,
+                                      device=device)
+    pl = place_serve(cfg, mesh, params, cache, {"tokens": toks},
+                     tokens_per_step=toks.numel())
+    placed = all(C.is_placed(t) for t in _leaves(pl.params)
+                 + [pl.cache[k] for k in pl.cache if k != "len"])
+    decode = serve_step(cfg, "decode")
+    lg, cache = serve_step(cfg, "prefill")(pl.params, pl.cache, pl.inputs)
+    out = [C.full_tensor(lg)[:, 0]]
+
+    def step_in(t):
+        tok = torch.tensor([[f[t]] for f in forced], dtype=torch.int32,
+                           device=device)
+        return {"tokens": C.place(tok, mesh, pl.input_specs["tokens"])}
+
+    for t in range(len(forced[0]) - 1):
+        lg, cache = decode(pl.params, cache, step_in(t))
+        out.append(C.full_tensor(lg)[:, 0])
+    last = step_in(len(forced[0]) - 1)
+    arg_bytes = _placed_bytes((pl.params, cache, last))
+    measured = _measured_step(lambda: decode(pl.params, cache, last),
+                              arg_bytes)
+    return out, measured, placed
+
+
+def _plain_forced(cfg, params, prompts, forced, device):
+    """The same as :func:`_placed_serve_run`'s logits on plain tensors."""
+    from repro_torch.models.api import model_fns
+    fns = model_fns(cfg)
+    with torch.no_grad():
+        cache = fns.init_cache(cfg, len(prompts), SERVE_MAX_SEQ,
+                               device=device)
+        lg, cache = fns.prefill(params, cfg, cache, torch.tensor(
+            prompts, dtype=torch.int32, device=device))
+        out = [lg[:, 0]]
+        for t in range(len(forced[0]) - 1):
+            lg, cache = fns.decode_step(params, cfg, cache, torch.tensor(
+                [[f[t]] for f in forced], dtype=torch.int32, device=device))
+            out.append(lg[:, 0])
+    return out
+
+
+def _tf_errs(got, want):
+    return [float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(got, want)]
+
+
+def _dryrun_rank(rank, device="cuda"):
+    """Phase 13 (a) and the real halves of (b) on a one-rank (1, 1)
+    mesh."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.models.api import model_fns
+    from repro_torch.models.layers import set_attention_mesh
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        place_gspmd)
+
+    device = torch.device(device)
+    mesh = C.make_mesh((1, 1), ("data", "model"), device=device)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    out = {}
+    _zero_counts()
+    for arch, cut in ((SERVE_ARCH, {}),
+                      (ZOO_HYBRID, {"n_layers": ZOO_CUT_LAYERS})):
+        t0 = time.perf_counter()
+        cfg = _zoo_cfg(arch, "float32", **cut)
+        params = model_fns(cfg).init(
+            torch.Generator(device=device).manual_seed(SEED), cfg,
+            device=device)
+        prompts = torch.randint(0, cfg.vocab, (DRYRUN_SLOTS, DRYRUN_PROMPT),
+                                generator=gen).tolist()
+        forced = torch.randint(0, cfg.vocab, (DRYRUN_SLOTS, DRYRUN_STEPS + 1),
+                               generator=gen).tolist()
+        try:
+            got, measured, placed = _placed_serve_run(cfg, params, prompts,
+                                                      forced, mesh, device)
+        finally:
+            set_attention_mesh(None)
+        want = (_teacher_forced(params, cfg, prompts, forced, None, device)
+                if cfg.family != "hybrid" else
+                _plain_forced(cfg, params, prompts, forced, device))
+        out[arch] = {"n_layers": cfg.n_layers, "placed": placed,
+                     "teacher_forced_rel_err": _tf_errs(got, want),
+                     "decode": measured, "s": time.perf_counter() - t0}
+        del params
+        torch.cuda.empty_cache()
+    out["launches"] = _launch_counts()
+    # (b): phase 11 (f)'s placed train step
+    cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32", n_layers=LM_GSPMD_LAYERS)
+    fns = model_fns(cfg)
+    params = fns.init(torch.Generator(device=device).manual_seed(SEED), cfg,
+                      device=device)
+    batch = _lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, device)
+    opt = AdamW(lr=LM_TRAIN_LR)
+    try:
+        pl = place_gspmd(cfg, mesh, init_train_state(params, opt), batch)
+        del params
+        state, pbatch = pl.state, pl.place_batch(batch)
+        step = make_train_step(lambda p, b: fns.loss(p, cfg, b), opt)
+        arg_bytes = _placed_bytes((state.params, state.opt.m, state.opt.v,
+                                   pbatch))
+        out["train"] = _measured_step(lambda: step(state, pbatch), arg_bytes)
+    finally:
+        set_attention_mesh(None)
+    del state, pbatch, pl
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dry_step(built, measured, cfg):
+    """The dry run of one built step against its real measurement."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    stats = dryrun.analyze_built(built)
+    predicted = stats["argument_size_in_bytes"] + stats["temp_size_in_bytes"]
+    return {"trace_s": time.perf_counter() - t0,
+            "argument_bytes": stats["argument_size_in_bytes"],
+            "real_argument_bytes": measured["argument_bytes"],
+            "dot_flops": stats["dot_flops"],
+            "real_dot_flops": measured["dot_flops"],
+            "flops": stats["flops"], "bytes": stats["hbm_bytes"],
+            "temp_bytes": stats["temp_size_in_bytes"],
+            "predicted_peak_bytes": predicted,
+            "allocator_peak_bytes": measured["peak_bytes"],
+            "peak_ratio": predicted / measured["peak_bytes"],
+            **dryrun.price(stats, dtype=cfg.dtype),
+            "p50_ms": measured["p50_ms"], "step_ms": measured["step_ms"],
+            "device_busy_ms": measured["device_busy_ms"]}
+
+
+def dryrun_phase(card, device="cuda"):
+    """Phase 13 (see the module docstring).  Returns each kernel's
+    launches (none: the dense LM path runs no kernel)."""
+    import gc
+    import tempfile
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.spawn import end_world, fake_world, run_spmd
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import set_attention_mesh
+    from repro_torch.parallel.sharding import device_budget
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    r = run_spmd(_dryrun_rank, 1, device, device=device)[0]
+    hbm_bytes, mem_elems = device_budget(device)
+    memory = {"hbm_bytes": hbm_bytes, "mem_elems": mem_elems}
+    steps = {}
+    try:
+        fake_world(1)
+        mesh = C.make_mesh((1, 1), ("data", "model"), device=device)
+        cfg = _zoo_cfg(SERVE_ARCH, "float32")
+        cache = _meta_like(_zoo_init_cache(cfg, DRYRUN_SLOTS))
+        steps["decode"] = dict(_dry_step(dryrun.serve_on(
+            cfg, mesh, "decode", {"tokens": torch.empty(
+                (DRYRUN_SLOTS, 1), dtype=torch.int32, device="meta")},
+            cache, tokens_per_step=DRYRUN_SLOTS, **memory),
+            r[SERVE_ARCH]["decode"], cfg), arch=SERVE_ARCH,
+            n_layers=cfg.n_layers, slots=DRYRUN_SLOTS,
+            cache_len=SERVE_MAX_SEQ)
+        set_attention_mesh(None)
+        cfg = _zoo_cfg(LM_TRAIN_ARCH, "float32", n_layers=LM_GSPMD_LAYERS)
+        batch = _meta_like(_lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                     "cpu"))
+        steps["train"] = dict(_dry_step(dryrun.train_on(
+            cfg, mesh, batch, **memory), r["train"], cfg),
+            arch=LM_TRAIN_ARCH, n_layers=cfg.n_layers,
+            batch=[LM_TRAIN_BATCH, LM_TRAIN_SEQ])
+        set_attention_mesh(None)
+        serve = {arch: r[arch] for arch in (SERVE_ARCH, ZOO_HYBRID)}
+        print(json.dumps({"phase": "dryrun", "card": card,
+                          "placed_serve": serve, "slots": DRYRUN_SLOTS,
+                          "prompt": DRYRUN_PROMPT,
+                          "decode_steps": DRYRUN_STEPS,
+                          "launches": r["launches"]}), flush=True)
+        for name, st in steps.items():
+            print(json.dumps({"phase": "dryrun", "card": card, "step": name,
+                              "mesh": {"data": 1, "model": 1},
+                              "dtype": "float32", **st}), flush=True)
+        cells = []
+        with tempfile.TemporaryDirectory() as out_dir:
+            for arch, shape in DRYRUN_CELLS:
+                t0 = time.perf_counter()
+                rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                                      out_dir=out_dir, device=device)
+                cells.append(dict(rec, seconds=time.perf_counter() - t0))
+                print(json.dumps({"phase": "dryrun", "card": card, "cell":
+                                  f"{arch} {shape} {rec['mesh']}",
+                                  **cells[-1]}), flush=True)
+    finally:
+        set_attention_mesh(None)
+        end_world()
+    print(json.dumps({"phase": "dryrun", "card": card,
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    for arch, z in serve.items():
+        check(z["placed"], f"{arch}: the served state is not placed")
+        worst = max(z["teacher_forced_rel_err"])
+        check(worst <= TF_RTOL, f"{arch} placed serve vs dense: teacher-"
+              f"forced logits {worst:.3e} > {TF_RTOL}")
+    check(not any(r["launches"].values()),
+          f"the placed serve steps launched a kernel: {r['launches']}")
+    lo, hi = DRYRUN_PEAK_BAND
+    for name, st in steps.items():
+        check(st["argument_bytes"] == st["real_argument_bytes"],
+              f"dry run {name}: argument bytes {st['argument_bytes']} != "
+              f"the placed state's {st['real_argument_bytes']}")
+        check(st["dot_flops"] == st["real_dot_flops"],
+              f"dry run {name}: dot FLOPs {st['dot_flops']} != the real "
+              f"step's {st['real_dot_flops']}")
+        check(lo <= st["peak_ratio"] <= hi,
+              f"dry run {name}: predicted / allocator peak "
+              f"{st['peak_ratio']:.4f} outside {DRYRUN_PEAK_BAND}")
+    for rec in cells:
+        check(rec["status"] == "ok", f"dry run cell {rec['arch']} "
+              f"{rec['shape']}: {rec.get('error', rec['status'])}")
+    return r["launches"]
+
+
+def _zoo_init_cache(cfg, slots):
+    """``cfg``'s serve cache for ``slots`` slots of ``SERVE_MAX_SEQ``
+    rows, on the CPU (its shapes only are used)."""
+    from repro_torch.models.api import model_fns
+    return model_fns(cfg).init_cache(cfg, slots, SERVE_MAX_SEQ, device="cpu")
+
+
 def kernel_entry(name, source, replaces, jax_function, rows, path_rows,
                  launches, by_path):
     """One kernel's line: errors over every shape checked, times summed
@@ -3574,6 +3892,8 @@ def main() -> int:
     _clock("lm_train")
     verified = verify_phase(card)
     _clock("verify")
+    dry = dryrun_phase(card)
+    _clock("dryrun")
 
     def by_path(name):
         counts = {"infer": infer.get(name, 0),
@@ -3586,7 +3906,8 @@ def main() -> int:
                   "train_lm_gspmd": train_lm_gspmd[name],
                   "train_lm_gspmd_zoo": train_lm_gspmd_zoo[name],
                   "ops_matmul": ops_matmul[name],
-                  "verify": verified[name]}
+                  "verify": verified[name],
+                  "dryrun": dry.get(name, 0)}
         counts.update(serve.get(name, dict.fromkeys(serve["matmul"], 0)))
         return counts
 

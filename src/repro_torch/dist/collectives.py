@@ -444,6 +444,13 @@ def world_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def group_size(group_name: str) -> int:
+    """The ranks of the process group registered under ``group_name``
+    (the name a functional collective carries)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(group_name).size()
+
+
 def any_rank(flag: bool, *, device=None, tag: str = "stop_vote") -> bool:
     """True on every rank when ``flag`` is true on any rank: a one-int max
     all-reduce over the default process group (on ``device``, which must
@@ -800,6 +807,71 @@ def _note_redistribute(x, dst, tag: str) -> None:
             v //= g
 
 
+def settle(x, *, tag: str):
+    """A DTensor's pending sums (``Partial`` placements) summed into
+    replicas (an all-reduce over each such mesh dim, noted under
+    ``gspmd_<tag>``), every other placement kept; anything else as it
+    is."""
+    if not is_placed(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dst = [Replicate() if p.is_partial() else p for p in x.placements]
+    if tuple(dst) == tuple(x.placements):
+        return x
+    _note_redistribute(x, dst, "gspmd_" + tag)
+    return x.redistribute(x.device_mesh, dst)
+
+
+def shard_axes(x, dim: int) -> tuple:
+    """The mesh axes that split a DTensor's ``dim`` (none for a plain
+    tensor)."""
+    if not is_placed(x):
+        return ()
+    dim = dim % x.dim()
+    names = _mesh_dim_names(x.device_mesh)
+    return tuple(names[i] for i, p in enumerate(x.placements)
+                 if p.is_shard(dim))
+
+
+def whole_along(x, dim: int, *, tag: str, axes=None):
+    """A DTensor with ``dim`` whole over ``axes`` (every mesh axis by
+    default): an all-gather over each of them that splits it, every other
+    placement kept; noted under ``gspmd_<tag>``."""
+    from torch.distributed.tensor import Replicate
+    dim = dim % x.dim()
+    names = _mesh_dim_names(x.device_mesh)
+    dst = [Replicate() if p.is_shard(dim) and (axes is None
+                                               or names[i] in axes) else p
+           for i, p in enumerate(x.placements)]
+    if tuple(dst) == tuple(x.placements):
+        return x
+    _note_redistribute(x, dst, "gspmd_" + tag)
+    return x.redistribute(x.device_mesh, dst)
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity whose backward makes the gradient whole along a dim
+    (:func:`whole_along`)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tag):
+        ctx.dim, ctx.tag = dim, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_along(g, ctx.dim, tag=ctx.tag), None, None
+
+
+def grad_whole_along(x, dim: int, *, tag: str):
+    """``x`` itself, its gradient made whole along ``dim`` on every rank
+    before it flows back past this point (a DTensor that requires grad;
+    anything else passes as it is)."""
+    if not (is_placed(x) and x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _WholeGrad.apply(x, dim, tag)
+
+
 def constrain(x, mesh: DeviceMesh, spec, *, tag: str):
     """``x`` redistributed to ``spec`` -- what ``with_sharding_constraint``
     is to GSPMD -- its collectives noted under ``gspmd_<tag>``.  ``x``
@@ -815,15 +887,18 @@ def constrain(x, mesh: DeviceMesh, spec, *, tag: str):
 
 
 def constrain_like(x, ref, *, tag: str):
-    """``x`` (a DTensor) redistributed to the placements of ``ref``."""
-    if tuple(x.placements) == tuple(ref.placements):
+    """``x`` (a DTensor) redistributed to the placements of ``ref``, a
+    pending sum of ``ref``'s taken as a replica."""
+    from torch.distributed.tensor import Replicate
+    dst = tuple(Replicate() if p.is_partial() else p for p in ref.placements)
+    if tuple(x.placements) == dst:
         return x
-    _note_redistribute(x, ref.placements, "gspmd_" + tag)
-    return x.redistribute(ref.device_mesh, ref.placements)
+    _note_redistribute(x, dst, "gspmd_" + tag)
+    return x.redistribute(ref.device_mesh, dst)
 
 
 def local_map(fn, mesh: DeviceMesh, in_specs, out_spec, *,
-              grad_sum_axes=None):
+              grad_sum_axes=None, out_sum_axes=()):
     """``fn`` run on each rank's blocks: its DTensor arguments must be
     placed by ``in_specs`` (``None`` for an argument that is not a
     tensor), and its one output is placed by ``out_spec`` (a list of
@@ -834,11 +909,16 @@ def local_map(fn, mesh: DeviceMesh, in_specs, out_spec, *,
     pending sum (``Partial``): an argument replicated over axes that
     split the work (a weight beside a batch split over data) gets only
     its rank's share of the gradient there; ``None`` or ``()`` keeps the
-    argument's placements."""
+    argument's placements.  ``out_sum_axes`` names the mesh axes over
+    which a single output is a pending sum of the ranks' blocks."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map as _lm
-    outs = (tuple(placements(mesh, s) for s in out_spec)
-            if isinstance(out_spec, list) else placements(mesh, out_spec))
+    if isinstance(out_spec, list):
+        outs = tuple(placements(mesh, s) for s in out_spec)
+    else:
+        names = _mesh_dim_names(mesh)
+        outs = [Partial() if names[i] in out_sum_axes else q
+                for i, q in enumerate(placements(mesh, out_spec))]
     ins = tuple(None if s is None else placements(mesh, s)
                 for s in in_specs)
     grads = None

@@ -52,6 +52,30 @@ def _worker(rank, world_size, store_path, device_type, fn, args, results):
     results.put((rank, True, out))
 
 
+def fake_world(n: int) -> None:
+    """A process group of ``n`` fake ranks in this process, as rank 0
+    (backend ``"fake"``: every collective returns at once and moves
+    nothing), unless a fake group of that size is already up (a fake
+    group of another size is ended first).  The dry run's meshes stand on
+    it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is "
+                               f"already up; a fake one cannot join it")
+        if dist.get_world_size() == n:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+
+
+def end_world() -> None:
+    """End this process's process group, if one is up."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def run_spmd(fn, world_size: int, *args, device=None) -> list:
     """``[fn(0, *args), ..., fn(world_size - 1, *args)]``, each run on its
     own rank of a fresh process group on ``device`` (``cuda`` by

@@ -1,0 +1,360 @@
+"""Per-device FLOPs, memory traffic, collective wire bytes and live memory
+of one step, read from the eager ops it runs -- what
+``repro/launch/hlo_analysis.py::analyze_hlo`` is to the reference, which
+reads them from compiled HLO.
+
+:class:`OpCounter` is a dispatch mode.  On placed state (DTensors) it
+lets DTensor plan every op and counts the ops DTensor then runs on this
+rank's blocks, so every count is per device; it skips the global-shape
+ops DTensor's sharding propagation runs on fake tensors.  A replicated op
+costs every device its whole count.  The dry run's blocks live on the
+``meta`` device, so nothing is computed and nothing is allocated: the
+counts are those of the real step on a device of the mesh.
+
+Accounting model (per device, the reference's where it can be):
+  flops   -- dot (``mm``, ``bmm``, ``addmm``, ``baddbmm``):
+             ``2 * |out| * K``; conv: ``2 * |out| * cin / groups * k``;
+             every other op: ``|out|`` (a floor; dots dominate).  The dot
+             count equals ``torch.utils.flop_counter``'s.
+  bytes   -- every op's tensor operands plus its result.  The eager port
+             fuses nothing, so that is what it moves, where the
+             reference's count stops at XLA's fusion boundaries.  Views
+             and metadata ops move nothing; a gather (``index``,
+             ``embedding``) moves twice its result; an indexed write
+             (``index_put_``) twice its values.
+  wire    -- the ring model of each collective's payload ``V`` and group
+             size ``g`` (``repro/launch/dryrun.py``): all-gather
+             ``V * (g - 1) / g`` (``V`` the gathered result),
+             reduce-scatter ``result * (g - 1)``, all-reduce
+             ``2 * V * (g - 1) / g``, all-to-all ``V * (g - 1) / g``,
+             collective-permute ``V``.  Every collective DTensor issues
+             counts, its implicit redistributions included.
+  memory  -- the bytes of every storage the step's ops create, tracked
+             until it is freed: ``temp`` is the peak of those live
+             bytes over the step; the arguments are the placed state
+             the step starts from.
+A Python loop runs unrolled in eager mode: there are no trip counts.
+"""
+
+from __future__ import annotations
+
+import math
+import weakref
+from typing import Any, Dict, Iterable
+
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+#: functional collectives: op name -> kind
+_COLL_OPS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-permute",
+    "broadcast_": "collective-permute",
+}
+_FREE_OPS = {"wait_tensor", "_wrap_tensor_autograd", "detach", "alias",
+             "_unsafe_view", "lift_fresh"}
+_DOTS = {"mm": 0, "addmm": 1, "bmm": 0, "baddbmm": 1}
+_GATHERS = {"index", "embedding", "gather", "index_select"}
+_INDEXED_WRITES = {"index_put_", "index_put", "_index_put_impl_",
+                   "index_copy_", "scatter_", "masked_scatter_"}
+
+
+def ring_wire(kind: str, nbytes: float, g: int) -> float:
+    """Per-device wire bytes of one collective of kind ``kind`` (one of
+    :data:`COLLECTIVES`) over ``g`` ranks, ``nbytes`` being the buffer
+    the reference's ``parse_collectives`` reads: the gathered result of
+    an all-gather, the scattered result of a reduce-scatter, the operand
+    of the others."""
+    if kind == "all-gather":
+        return nbytes * (g - 1) / max(g, 1)
+    if kind == "reduce-scatter":
+        return nbytes * (g - 1)
+    if kind == "all-reduce":
+        return 2 * nbytes * (g - 1) / max(g, 1)
+    if kind == "all-to-all":
+        return nbytes * (g - 1) / max(g, 1)
+    if kind == "collective-permute":
+        return nbytes
+    raise ValueError(f"unknown collective kind {kind!r}")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(tree) -> list:
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _is_view(func) -> bool:
+    """True for an op whose result aliases an input without writing it."""
+    rets = func._schema.returns
+    return bool(rets) and all(r.alias_info is not None
+                              and not r.alias_info.is_write for r in rets)
+
+
+def _in_place(func) -> bool:
+    rets = func._schema.returns
+    return bool(rets) and any(r.alias_info is not None
+                              and r.alias_info.is_write for r in rets)
+
+
+def storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (shared by all its views)."""
+    return t.untyped_storage()._cdata
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the local ops run inside it (see the module docstring).
+
+    ``flops``, ``dot_flops``, ``bytes``, ``collectives`` (``(kind,
+    payload bytes, group size)`` of each, in order; see
+    :func:`parse_collectives`), ``by_op`` (``{op: [calls, flops,
+    bytes]}``) and the memory: ``temp_peak_bytes``, and ``live_bytes``
+    now.  Storages named by :meth:`hold` (the arguments) are not counted
+    as temporaries."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0.0
+        self.dot_flops = 0.0
+        self.bytes = 0.0
+        self.collectives: list = []
+        self.by_op: Dict[str, list] = {}
+        self.live_bytes = 0
+        self.temp_peak_bytes = 0
+        self._known: Dict[int, int] = {}
+        self._memo: Dict[tuple, tuple] = {}
+
+    # ------------------------------------------------------- memory --
+    def hold(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Mark the storages of ``tensors`` as existing before the step."""
+        for t in tensors:
+            self._known.setdefault(storage_key(t), 0)
+
+    def _freed(self, key: int, nbytes: int) -> None:
+        if self._known.pop(key, None) is not None:
+            self.live_bytes -= nbytes
+
+    def _track(self, outs) -> None:
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._known:
+                continue
+            n = st.nbytes()
+            self._known[key] = n
+            self.live_bytes += n
+            weakref.finalize(st, self._freed, key, n)
+        self.temp_peak_bytes = max(self.temp_peak_bytes, self.live_bytes)
+
+    def held_bytes(self, tensors: Iterable[torch.Tensor]) -> int:
+        """Bytes of the distinct storages of ``tensors`` that the step
+        created (its outputs, beside the arguments it updated)."""
+        seen = {}
+        for t in tensors:
+            key = storage_key(t)
+            if self._known.get(key):
+                seen[key] = self._known[key]
+        return sum(seen.values())
+
+    # -------------------------------------------------------- counts --
+    def _count(self, name: str, flops: float, nbytes: float,
+               dot: float = 0.0) -> None:
+        row = self.by_op.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += flops
+        row[2] += nbytes
+        self.flops += flops
+        self.dot_flops += dot
+        self.bytes += nbytes
+
+    def _collective(self, func, name: str, args, out) -> None:
+        from repro_torch.dist.collectives import group_size
+        kind = _COLL_OPS[name]
+        inp = args[0]
+        if kind == "all-gather":
+            g = int(args[1])
+        elif kind == "reduce-scatter":
+            g = int(args[2])
+        else:
+            g = group_size(args[-1])
+        res = _tensors(out)
+        v = _nbytes(res[0] if kind in ("all-gather", "reduce-scatter")
+                    else inp)
+        self.collectives.append((kind, v, g))
+        self._count(str(func), 0.0, _nbytes(inp) + sum(map(_nbytes, res)))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented   # DTensor plans it, then runs its blocks
+        if any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)   # sharding propagation
+        kind = _op_kind(func)
+        if kind == "pure":
+            leaves, _ = pytree.tree_flatten((args, kwargs))
+            ts = [t for t in leaves if isinstance(t, torch.Tensor)]
+            if ts and all(type(t) is torch.Tensor and t.device.type == "meta"
+                          for t in ts):
+                return self._meta_pure(func, leaves, args, kwargs)
+        out = func(*args, **kwargs)
+        outs = _tensors(out)
+        if any(isinstance(t, FakeTensor) for t in outs):
+            return out              # sharding propagation: global shapes
+        name = func._schema.name.split("::")[-1]
+        if kind == "collective":
+            self._collective(func, name, args, out)
+        elif kind == "free" or not outs:
+            return out
+        else:
+            ins = _tensors((args, kwargs))
+            self._count(str(func), *_cost(name, args, ins, outs))
+        if kind != "in_place":
+            self._track(outs)
+        return out
+
+    def _meta_pure(self, func, leaves, args, kwargs):
+        """A functional op on ``meta`` blocks.  Its result and cost depend
+        only on the operands' shapes, strides and dtypes and the other
+        arguments: the first call of each signature runs the meta kernel,
+        later ones build the result from the recorded shapes (a layer
+        repeats every op of the one before it)."""
+        key = (func,) + tuple(
+            (tuple(t.shape), t.stride(), t.dtype) if isinstance(
+                t, torch.Tensor) else t for t in leaves)
+        hit = self._memo.get(key) if _hashable(key) else None
+        if hit is None:
+            out = func(*args, **kwargs)
+            outs = _tensors(out)
+            if any(type(t) is not torch.Tensor or t.device.type != "meta"
+                   for t in outs):
+                raise TypeError(f"{func} on meta blocks made {outs}")
+            name = func._schema.name.split("::")[-1]
+            cost = _cost(name, args, _tensors(leaves), outs) if outs \
+                else None
+            flat, spec = pytree.tree_flatten(out)
+            hit = (spec, [(tuple(t.shape), t.stride(), t.dtype)
+                          if isinstance(t, torch.Tensor) else t
+                          for t in flat], cost)
+            if _hashable(key):
+                self._memo[key] = hit
+        else:
+            spec, flat, cost = hit
+            out = pytree.tree_unflatten(
+                [torch.empty_strided(x[0], x[1], dtype=x[2], device="meta")
+                 if isinstance(x, tuple) else x for x in flat], spec)
+            outs = _tensors(out)
+        if cost is not None:
+            self._count(str(func), *cost)
+            self._track(outs)
+        return out
+
+
+def _hashable(key) -> bool:
+    try:
+        hash(key)
+    except TypeError:
+        return False
+    return True
+
+
+_KINDS: Dict[Any, str] = {}
+
+
+def _op_kind(func) -> str:
+    """``collective``, ``free`` (a view or metadata op: moves nothing),
+    ``in_place`` (writes an operand) or ``pure`` (makes new tensors)."""
+    kind = _KINDS.get(func)
+    if kind is None:
+        name = func._schema.name.split("::")[-1]
+        if func.namespace in ("_c10d_functional",
+                              "_c10d_functional_autograd") \
+                and name in _COLL_OPS:
+            kind = "collective"
+        elif name in _FREE_OPS or _is_view(func):
+            kind = "free"
+        elif _in_place(func):
+            kind = "in_place"
+        else:
+            kind = "pure"
+        _KINDS[func] = kind
+    return kind
+
+
+def _cost(name: str, args, ins, outs):
+    """(flops, bytes, dot flops) of one local op."""
+    o = outs[0]
+    moved = float(sum(map(_nbytes, ins)) + sum(map(_nbytes, outs)))
+    if name in _DOTS:
+        a = args[_DOTS[name]]
+        dot = 2.0 * o.numel() * a.shape[-1]
+        return dot + (o.numel() if _DOTS[name] else 0), moved, dot
+    if name == "convolution":
+        w = args[1]
+        dot = 2.0 * o.numel() * w.shape[1] * math.prod(w.shape[2:])
+        return dot, moved, dot
+    if name in _GATHERS:
+        idx = sum(_nbytes(t) for t in ins[1:] if not t.is_floating_point())
+        return float(o.numel()), 2.0 * _nbytes(o) + idx, 0.0
+    if name in _INDEXED_WRITES:
+        vals = ins[-1]
+        idx = sum(_nbytes(t) for t in ins[1:-1])
+        return float(vals.numel()), 2.0 * _nbytes(vals) + idx, 0.0
+    return float(sum(t.numel() for t in outs)), moved, 0.0
+
+
+def parse_collectives(events) -> Dict[str, Any]:
+    """Per-kind wire-byte totals and counts of recorded collectives
+    (``OpCounter.collectives``), by :func:`ring_wire` -- the keys of the
+    reference's ``parse_collectives``."""
+    out = {k: 0.0 for k in COLLECTIVES}
+    counts = {k: 0 for k in COLLECTIVES}
+    for kind, nbytes, g in events:
+        out[kind] += ring_wire(kind, nbytes, g)
+        counts[kind] += 1
+    return {"wire_bytes": out, "counts": counts,
+            "total_wire_bytes": sum(out.values())}
+
+
+def analyze(step, args: Any, *, hold: Any = None) -> Dict[str, Any]:
+    """Run ``step(*args)`` under an :class:`OpCounter` and return the
+    reference's ``analyze_hlo`` keys (``flops``, ``hbm_bytes``,
+    ``wire_bytes``, ``coll_counts``, ``total_wire_bytes``) with the dot
+    FLOPs, the per-op table, the argument, output and temp bytes, and
+    the step's output.  ``hold`` (default ``args``) is the state the step
+    starts from: its argument bytes are its blocks' bytes on this
+    device."""
+    from repro_torch.dist.collectives import local_part
+    held = [local_part(t) for t in _tensors(args if hold is None else hold)]
+    counter = OpCounter()
+    counter.hold(held)
+    with counter:
+        out = step(*args)
+    outs = [local_part(t) for t in _tensors(out)]
+    coll = parse_collectives(counter.collectives)
+    return {
+        "flops": counter.flops,
+        "dot_flops": counter.dot_flops,
+        "hbm_bytes": counter.bytes,
+        "wire_bytes": coll["wire_bytes"],
+        "coll_counts": coll["counts"],
+        "total_wire_bytes": coll["total_wire_bytes"],
+        "by_op": counter.by_op,
+        "argument_size_in_bytes": sum(_nbytes(t) for t in
+                                      {id(t): t for t in held}.values()),
+        "output_size_in_bytes": counter.held_bytes(outs),
+        "temp_size_in_bytes": counter.temp_peak_bytes,
+        "out": out,
+    }

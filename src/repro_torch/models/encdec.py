@@ -84,11 +84,10 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
 
 
 def _xkv(blk: Dict, enc_out: torch.Tensor, cfg: ModelConfig):
-    b, t, _ = enc_out.shape
-    k = (enc_out @ blk["xattn"]["wk"]).reshape(b, t, cfg.n_kv_heads,
-                                               cfg.head_dim)
-    v = (enc_out @ blk["xattn"]["wv"]).reshape(b, t, cfg.n_kv_heads,
-                                               cfg.head_dim)
+    k = L.split_heads(enc_out @ blk["xattn"]["wk"], cfg.n_kv_heads,
+                      cfg.head_dim)
+    v = L.split_heads(enc_out @ blk["xattn"]["wv"], cfg.n_kv_heads,
+                      cfg.head_dim)
     return k, v
 
 
@@ -170,37 +169,51 @@ def prefill_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
     b, s = tokens.shape
     h = L.embed(params["emb"], tokens)
     positions = _positions(b, s, tokens.device)
+    # the cross K/V go into the cache in place when it holds this many
+    # frames; else, as the reference returns them, as new leaves
+    in_place = cache["xk"].shape[2] == enc_out.shape[1]
+    xks, xvs = [], []
     for i, blk in enumerate(params["dec"]):
         h = h + lm._prefill_attention(blk, h, cache["k"][i], cache["v"][i],
                                       cfg=cfg, positions=positions,
                                       window=0)
         xk, xv = _xkv(blk, enc_out, cfg)
-        cache["xk"][i] = xk
-        cache["xv"][i] = xv
+        if in_place:
+            cache["xk"][i] = xk
+            cache["xv"][i] = xv
+        else:
+            xks.append(xk.to(cfg.torch_dtype))
+            xvs.append(xv.to(cfg.torch_dtype))
         h = h + _cross(blk, h, xk, xv, cfg)
         h = h + _mlp(blk, h, cfg)
     length = torch.tensor(s, dtype=torch.int32, device=tokens.device)
-    return lm._head(params, cfg, h[:, -1:], None), dict(cache, len=length)
+    out = dict(cache, len=length)
+    if not in_place:
+        out.update(xk=torch.stack(xks), xv=torch.stack(xvs))
+    return lm._head(params, cfg, h[:, -1:], None), out
 
 
 def decode_step_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
                        tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """tokens: [B,1] -> (logits [B,1,V] f32, cache with ``len + 1``).
-    The self-attention's scalar ``pos`` goes in as a per-slot vector, so
-    the cache write and the mask stay on the device."""
+    """tokens: [B,1] -> (logits [B,1,V] f32, cache with ``len + 1``)."""
     b = tokens.shape[0]
     h = L.embed(params["emb"], tokens)
     pos = cache["len"]
     hd, nh, g = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    # under a pinned mesh each residual sum is pinned batch over data and
+    # whole over model (``layers.replicate_model``), so each projection
+    # runs on its weight's shard and none is gathered
+    pin = L.replicate_model
     for i, blk in enumerate(params["dec"]):
-        h = h + lm._cached_attention(blk, h, cache["k"][i], cache["v"][i],
-                                     cfg=cfg, pos=pos.expand(b), window=0)
+        h = pin(h + lm._cached_attention(blk, h, cache["k"][i],
+                                         cache["v"][i], cfg=cfg, pos=pos,
+                                         window=0))
         # cross attention against the cached encoder K/V
-        xq = (L.rmsnorm(h, blk["ln2"], cfg.norm_eps)
-              @ blk["xattn"]["wq"]).reshape(b, 1, nh, hd)
+        xq = L.split_heads(L.rmsnorm(h, blk["ln2"], cfg.norm_eps)
+                           @ blk["xattn"]["wq"], nh, hd)
         xo = L.attention_scores(xq, L._repeat_kv(cache["xk"][i], nh // g),
                                 L._repeat_kv(cache["xv"][i], nh // g),
                                 mask=None, scale=hd ** -0.5)
-        h = h + xo.reshape(b, 1, nh * hd) @ blk["xattn"]["wo"]
-        h = h + _mlp(blk, h, cfg)
+        h = pin(h + xo.reshape(b, 1, nh * hd) @ blk["xattn"]["wo"])
+        h = pin(h + _mlp(blk, h, cfg))
     return lm._head(params, cfg, h, None), dict(cache, len=pos + 1)

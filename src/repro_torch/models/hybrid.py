@@ -143,11 +143,8 @@ def _shared_block_cached(shared: Dict, h: torch.Tensor, ck, cv, *,
                          ) -> torch.Tensor:
     """The shared block on one token [B,1,d] against its application's
     K/V rows ``ck`` / ``cv`` [B,Smax,G,hd], this step's row written in
-    place at ``pos``.  The scalar ``pos`` goes in as a per-slot vector:
-    the cache write and the mask then stay on the device (the scalar path
-    reads ``pos`` on the host, a sync per application)."""
-    return lm._decode_block(shared, h, ck, cv, cfg=cfg,
-                            pos=pos.expand(h.shape[0]), window=0)
+    place at ``pos``."""
+    return lm._decode_block(shared, h, ck, cv, cfg=cfg, pos=pos, window=0)
 
 
 def decode_step_hybrid(params: Dict, cfg: ModelConfig, cache: Dict,

@@ -102,9 +102,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {sections} must sum to {d2}")
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)       # [D/2]
     # angle slot i uses the position stream its section names
-    stream = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))                 # [D/2]
+    stream = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # [D/2]
     pos = positions.float()[:, stream, :]                        # [B,D/2,S]
     return _rotate(x, pos.transpose(1, 2) * freqs)
 
@@ -447,6 +446,69 @@ def shard_residual(x: torch.Tensor) -> torch.Tensor:
     return _pin(x, _residual_spec(x.shape), "residual")
 
 
+def _block_offset(mesh, entry, local_len: int) -> int:
+    """Where this rank's block of a dim placed by spec ``entry`` starts:
+    its coordinate over the entry's axes (major first) times the block's
+    length."""
+    from repro_torch.dist.collectives import _spec_axes, axis_index, \
+        axis_size
+    idx = 0
+    for a in _spec_axes(entry):
+        idx = idx * axis_size(mesh, a) + axis_index(mesh, a)
+    return idx * local_len
+
+
+def write_rows(cache: torch.Tensor, new: torch.Tensor,
+               pos: Optional[torch.Tensor] = None) -> None:
+    """Write ``new`` [B,n,...] into ``cache`` [B,Smax,...] in place: into
+    its first ``n`` rows when ``pos`` is None (a prompt), else one row per
+    batch element at ``pos`` [B] (``n == 1``, a decode step).
+
+    On a placed cache (a DTensor, whose sequence dim the serve specs
+    shard over the model axis) each rank writes, through
+    ``collectives.local_map``, the rows that fall in its own block:
+    ``new`` and ``pos`` are pinned batch-like the cache and whole along
+    the sequence, so the write needs no gather and moves no cache row."""
+    from repro_torch.dist import collectives as C
+    if not C.is_placed(cache):
+        if pos is None:
+            cache[:, :new.shape[1]] = new
+        else:
+            rows = torch.arange(cache.shape[0], device=cache.device)
+            cache[rows, pos.long()] = new[:, 0]
+        return
+    mesh = cache.device_mesh
+    spec = C.spec_of(cache)
+    new_spec = (spec[0], None) + tuple(spec[2:])
+    new = C.constrain(new, mesh, new_spec, tag="cache_write")
+    n_all = new.shape[1]
+
+    def local(c, x, p=None):
+        sl = c.shape[1]
+        off = _block_offset(mesh, spec[1], sl)
+        if p is None:
+            n = min(max(n_all - off, 0), sl)
+            if n:
+                c[:, :n] = x[:, off:off + n]
+            return c
+        idx = p.long() - off
+        inside = ((idx >= 0) & (idx < sl)).view((-1,) + (1,) * (x.dim()
+                                                                 - 2))
+        rows = torch.arange(c.shape[0], device=c.device)
+        idx = idx.clamp(0, sl - 1)
+        c[rows, idx] = torch.where(inside, x[:, 0], c[rows, idx])
+        return c
+
+    args, specs = [cache, new], [spec, new_spec]
+    if pos is not None:
+        pos_spec = (spec[0],)
+        pos = (C.constrain(pos, mesh, pos_spec, tag="cache_write")
+               if C.is_placed(pos) else C.place(pos, mesh, pos_spec))
+        args.append(pos)
+        specs.append(pos_spec)
+    C.local_map(local, mesh, tuple(specs), spec)(*args)
+
+
 def _pinned_flash(q, k, v, window, causal, scale, q_chunk, k_chunk):
     """The flash branch under a pinned mesh: q and the GQA-expanded k/v
     pinned heads-over-model (batch-only where the heads do not divide),
@@ -490,6 +552,34 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attention_scores(q, k, v, mask=mask, scale=scale)
 
 
+def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """``x`` [..., n * d] as [..., n, d].  A placed ``x`` whose last dim is
+    split into blocks that do not hold whole heads (``n`` not a multiple
+    of the blocks: 15 heads over a model axis of 16) is first gathered
+    along it (``collectives.whole_along``); DTensor cannot split a
+    sharded dim unevenly, where XLA pads."""
+    from repro_torch.dist.collectives import axis_size, shard_axes, \
+        whole_along
+    axes = shard_axes(x, -1)
+    if n % math.prod(axis_size(x.device_mesh, a) for a in axes):
+        x = whole_along(x, -1, tag="split_heads")
+    return x.reshape(*x.shape[:-1], n, d)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., n, d] as [..., n * d].  Under a pinned mesh whose model
+    axis does not divide ``n``, the merged gradient is made whole along
+    its last dim before it flows back into the merge: its backward splits
+    that dim into the ``n`` heads, which a block of ``n * d / model``
+    features does not hold (:func:`split_heads`' case, backward)."""
+    n, d = x.shape[-2:]
+    out = x.reshape(*x.shape[:-2], n * d)
+    if _ATTN_MESH["mesh"] is not None and n % _mesh_size("model"):
+        from repro_torch.dist.collectives import grad_whole_along
+        out = grad_whole_along(out, -1, tag="merge_heads")
+    return out
+
+
 def _dense_mm(x: torch.Tensor, w: torch.Tensor, name: str = ""
               ) -> torch.Tensor:
     """Default projection matmul (the single-device path)."""
@@ -507,11 +597,11 @@ def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
     onto the explicit ``(Pm, Pn, Pc)`` grid)."""
     mm = mm if mm is not None else _dense_mm
     b, s, _ = x.shape
-    q = mm(x, params["wq"], "wq").reshape(b, s, n_heads, head_dim)
+    q = split_heads(mm(x, params["wq"], "wq"), n_heads, head_dim)
     pos2d = positions if positions.dim() == 2 else positions[:, 0]
     if kv_override is None:
-        k = mm(x, params["wk"], "wk").reshape(b, s, n_kv_heads, head_dim)
-        v = mm(x, params["wv"], "wv").reshape(b, s, n_kv_heads, head_dim)
+        k = split_heads(mm(x, params["wk"], "wk"), n_kv_heads, head_dim)
+        v = split_heads(mm(x, params["wv"], "wv"), n_kv_heads, head_dim)
         if mrope_sections is not None:
             q = apply_mrope(q, positions, theta, mrope_sections)
             k = apply_mrope(k, positions, theta, mrope_sections)
@@ -526,7 +616,7 @@ def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
             q = apply_rope(q, pos2d, theta)
     out = attention_core(q, k, v, causal=causal, window=window,
                          scale=head_dim ** -0.5)
-    return mm(out.reshape(b, s, n_heads * head_dim), params["wo"], "wo")
+    return mm(merge_heads(out), params["wo"], "wo")
 
 
 # ------------------------------------------------------------------ MLPs --
@@ -563,7 +653,40 @@ def init_embeddings(generator, vocab: int, d_model: int,
 
 
 def embed(emb: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``emb["tok"]`` at ``tokens``; placed tokens look up
+    each rank's block of the table (:func:`_placed_embed`)."""
+    from repro_torch.dist.collectives import is_placed
+    if is_placed(tokens):
+        return _placed_embed(emb["tok"], tokens)
     return emb["tok"][tokens.long()]
+
+
+def _placed_embed(table, tokens):
+    """The lookup on each rank's blocks (``collectives.local_map``), as
+    Megatron's vocab-parallel embedding: the tokens made whole over the
+    mesh axes that split the table, each rank's rows at the tokens its
+    vocabulary block holds (zeros elsewhere), summed over the vocabulary's
+    axes; the table's ``d_model`` split stays the output's.  DTensor's own
+    rules for the lookup gather the table (torch 2.13) or fail on indices
+    split over two mesh axes (torch 2.11, pure data parallelism)."""
+    from repro_torch.dist import collectives as C
+    vocab = C.shard_axes(table, 0)
+    tokens = C.whole_along(tokens, 0, tag="embed",
+                           axes=vocab + C.shard_axes(table, 1))
+    mesh = table.device_mesh
+    t_spec, x_spec = C.spec_of(table), C.spec_of(tokens)
+    batch = tuple(a for e in x_spec for a in C._spec_axes(e))
+
+    def local(tab, x):
+        rows = tab.shape[0]
+        idx = x.long() - _block_offset(mesh, t_spec[0], rows)
+        inside = (idx >= 0) & (idx < rows)
+        out = tab[idx.clamp(0, rows - 1)]
+        return out * inside[..., None].to(out.dtype)
+
+    out = C.local_map(local, mesh, (t_spec, x_spec), x_spec + t_spec[1:],
+                      grad_sum_axes=[batch, ()], out_sum_axes=vocab)
+    return C.settle(out(table, tokens), tag="embed")
 
 
 def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,

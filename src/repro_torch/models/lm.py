@@ -218,12 +218,13 @@ def _cached_attention(blk: Dict, h: torch.Tensor, cache_k: torch.Tensor,
     b = h.shape[0]
     mm = mm if mm is not None else L._dense_mm
     hd, nh, g = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    per_slot = pos.dim() == 1
+    if pos.dim() == 0:   # as a per-slot vector: no read on the host
+        pos = pos.expand(b)
     x = L.rmsnorm(h, blk["ln1"], cfg.norm_eps)
-    q = mm(x, blk["attn"]["wq"], "wq").reshape(b, 1, nh, hd)
-    k = mm(x, blk["attn"]["wk"], "wk").reshape(b, 1, g, hd)
-    v = mm(x, blk["attn"]["wv"], "wv").reshape(b, 1, g, hd)
-    posb = (pos[:, None] if per_slot else pos.expand(b)[:, None])
+    q = L.split_heads(mm(x, blk["attn"]["wq"], "wq"), nh, hd)
+    k = L.split_heads(mm(x, blk["attn"]["wk"], "wk"), g, hd)
+    v = L.split_heads(mm(x, blk["attn"]["wv"], "wv"), g, hd)
+    posb = pos[:, None]
     mrope = _mrope(cfg)
     if mrope is not None:
         pos3 = posb[:, None, :].expand(b, 3, 1)
@@ -232,24 +233,18 @@ def _cached_attention(blk: Dict, h: torch.Tensor, cache_k: torch.Tensor,
     else:
         q = L.apply_rope(q, posb, cfg.rope_theta)
         k = L.apply_rope(k, posb, cfg.rope_theta)
-    smax = cache_k.shape[1]
-    kpos = torch.arange(smax, device=h.device)
-    if per_slot:
-        rows = torch.arange(b, device=h.device)
-        cache_k[rows, pos.long()] = k[:, 0]
-        cache_v[rows, pos.long()] = v[:, 0]
-        valid = kpos[None, :] <= pos[:, None]
-        if window > 0:
-            valid &= kpos[None, :] > pos[:, None] - window
-        mask = valid[:, None, None, :]
-    else:
-        p = int(pos)
-        cache_k[:, p:p + 1] = k
-        cache_v[:, p:p + 1] = v
-        valid = kpos <= p
-        if window > 0:
-            valid &= kpos > p - window
-        mask = valid[None, None, None, :]
+    L.write_rows(cache_k, k, pos)
+    L.write_rows(cache_v, v, pos)
+    # under a pinned mesh the query's heads are made whole over the model
+    # axis, which splits the cache's sequence: the scores then split
+    # along the keys, and no view flattens two split dims (torch 2.11
+    # refuses one)
+    q = L.replicate_model(q)
+    kpos = torch.arange(cache_k.shape[1], device=h.device)
+    valid = kpos[None, :] <= pos[:, None]
+    if window > 0:
+        valid &= kpos[None, :] > pos[:, None] - window
+    mask = valid[:, None, None, :]
     kk = L._repeat_kv(cache_k, nh // g)
     vv = L._repeat_kv(cache_v, nh // g)
     out = L.attention_scores(q, kk, vv, mask=mask, scale=hd ** -0.5)
@@ -259,11 +254,14 @@ def _cached_attention(blk: Dict, h: torch.Tensor, cache_k: torch.Tensor,
 def _decode_block(blk: Dict, hh: torch.Tensor, ck, cv, *, cfg: ModelConfig,
                   pos: torch.Tensor, window: int, mm=None, dist_mesh=None,
                   dist_schedule: str = "allgather") -> torch.Tensor:
-    hh = hh + _cached_attention(blk, hh, ck, cv, cfg=cfg, pos=pos,
-                                window=window, mm=mm)
+    # under a pinned mesh each residual sum is pinned batch over data and
+    # whole over model, so each projection runs on its weight's shard and
+    # none is gathered
+    hh = L.replicate_model(hh + _cached_attention(
+        blk, hh, ck, cv, cfg=cfg, pos=pos, window=window, mm=mm))
     m, _ = _ffn(blk, hh, cfg=cfg, mm=mm, dist_mesh=dist_mesh,
                 dist_schedule=dist_schedule)
-    return hh + m
+    return L.replicate_model(hh + m)
 
 
 def _head(params: Dict, cfg: ModelConfig, h: torch.Tensor, mm
@@ -301,12 +299,12 @@ def _prefill_attention(blk: Dict, hh: torch.Tensor, ck, cv, *,
     b, s = hh.shape[0], hh.shape[1]
     mm = mm if mm is not None else L._dense_mm
     x = L.rmsnorm(hh, blk["ln1"], cfg.norm_eps)
-    q = mm(x, blk["attn"]["wq"], "wq").reshape(b, s, cfg.n_heads,
-                                               cfg.head_dim)
-    k = mm(x, blk["attn"]["wk"], "wk").reshape(b, s, cfg.n_kv_heads,
-                                               cfg.head_dim)
-    v = mm(x, blk["attn"]["wv"], "wv").reshape(b, s, cfg.n_kv_heads,
-                                               cfg.head_dim)
+    q = L.split_heads(mm(x, blk["attn"]["wq"], "wq"), cfg.n_heads,
+                      cfg.head_dim)
+    k = L.split_heads(mm(x, blk["attn"]["wk"], "wk"), cfg.n_kv_heads,
+                      cfg.head_dim)
+    v = L.split_heads(mm(x, blk["attn"]["wv"], "wv"), cfg.n_kv_heads,
+                      cfg.head_dim)
     mrope = _mrope(cfg)
     if mrope is not None:
         pos3 = positions[:, None, :].expand(b, 3, s)
@@ -315,8 +313,8 @@ def _prefill_attention(blk: Dict, hh: torch.Tensor, ck, cv, *,
     else:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    ck[:, :s] = k
-    cv[:, :s] = v
+    L.write_rows(ck, k)
+    L.write_rows(cv, v)
     o = L.attention_core(q, k, v, causal=True, window=window,
                          scale=cfg.head_dim ** -0.5)
     return mm(o.reshape(b, s, -1), blk["attn"]["wo"], "wo")
@@ -353,6 +351,7 @@ def prefill(params: Dict, cfg: ModelConfig, cache: Dict,
         h = _prefill_block(blk, h, cache["k"][i], cache["v"][i], cfg=cfg,
                            positions=positions, window=win, mm=mm,
                            dist_mesh=dist_mesh, dist_schedule=dist_schedule)
+        h = L.shard_residual(h)
     last = s - 1 if last_pos is None else int(last_pos)
     logits = _head(params, cfg, h[:, last:last + 1], mm)
     length = torch.tensor(last + 1, dtype=torch.int32, device=tokens.device)

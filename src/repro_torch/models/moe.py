@@ -26,7 +26,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _ATTN_MESH, _b_spec, _init, _mesh_size
+from repro_torch.models.layers import (_ATTN_MESH, _b_spec, _init,
+                                       _mesh_size, replicate_model)
 
 
 def _dispatch_spec(shape) -> tuple:
@@ -94,7 +95,13 @@ def moe_layer(params: Dict, x: torch.Tensor, *, top_k: int,
     n_tok = b * s
     gsz = moe_group_size(n_tok, group_size)
     g = n_tok // gsz
-    xg = x.reshape(g, gsz, d)
+    # under a pinned mesh the groups go over the data axes where they
+    # divide, else whole (a decode step's one group): DTensor would
+    # otherwise carry the tokens' batch sharding into the capacity dim,
+    # unevenly, and no view of it flattens.  The output goes back to the
+    # groups' first placement before the view back to [B, S, d].
+    xg_in = x.reshape(g, gsz, d)
+    xg = replicate_model(xg_in)
 
     logits = torch.einsum("gtd,de->gte", xg.float(), params["router"])
     probs = torch.softmax(logits, dim=-1)
@@ -143,4 +150,7 @@ def moe_layer(params: Dict, x: torch.Tensor, *, top_k: int,
     hact = (F.silu(hgate.float()) * hup.float()).to(x.dtype)
     ye = torch.einsum("gecf,efd->gecd", hact, params["w_down"])
     out = torch.einsum("gecd,gtec->gtd", ye.float(), comb)
+    if _ATTN_MESH["mesh"] is not None:
+        from repro_torch.dist.collectives import constrain_like
+        out = constrain_like(out, xg_in, tag="dispatch")
     return out.reshape(b, s, d).to(x.dtype), aux

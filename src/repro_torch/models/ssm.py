@@ -197,6 +197,9 @@ def linear_recurrence_step(q, k, v, lf, li, state):
     A contiguous float32 ``state`` is updated in place and returned (two
     passes over it, and one more to read ``y``); any other is first
     copied to float32, as the reference casts."""
+    from repro_torch.dist import collectives as C
+    if C.is_placed(state):
+        return _placed_step(q, k, v, lf, li, state)
     b, h, n = k.shape
     p = v.shape[-1]
     if state.dtype != torch.float32 or not state.is_contiguous():
@@ -209,6 +212,35 @@ def linear_recurrence_step(q, k, v, lf, li, state):
         v.float().reshape(b * h, 1, p))
     y = torch.matmul(q.float()[..., None, :], state)[..., 0, :]
     return y.to(v.dtype), state
+
+
+def _placed_step(q, k, v, lf, li, state):
+    """:func:`linear_recurrence_step` on a placed state (the serve specs
+    shard its heads over the model axis): every input pinned as the
+    state's batch and heads, and the step run on each rank's blocks
+    (``collectives.local_map``), whose heads and rows are independent; the
+    state's block is updated in place, so the placed state is returned
+    as it came."""
+    from repro_torch.dist import collectives as C
+    if state.dtype != torch.float32:
+        raise TypeError(f"a placed recurrent state is updated in place: it "
+                        f"must be float32, not {state.dtype}")
+    mesh = state.device_mesh
+    st_spec = C.spec_of(state)
+    specs = [st_spec[:3], st_spec[:3], st_spec[:3], st_spec[:2],
+             st_spec[:2]]
+    ins = [C.constrain(t, mesh, sp, tag="state_step") if C.is_placed(t)
+           else C.place(t, mesh, sp) for t, sp in zip((q, k, v, lf, li),
+                                                      specs)]
+
+    def local(ql, kl, vl, lfl, lil, sl):
+        y, s_new = linear_recurrence_step(ql, kl, vl, lfl, lil, sl)
+        assert s_new is sl, "the local state block was not contiguous"
+        return y
+
+    y = C.local_map(local, mesh, tuple(specs) + (st_spec,),
+                    st_spec[:3])(*ins, state)
+    return y, state
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -311,7 +343,7 @@ def mamba2_block(params: Dict, x: torch.Tensor, *, expand: int, state: int,
     lf = dt * A                                                  # log forget
     li = torch.log(dt + 1e-9)                                    # log input
 
-    v = xb.reshape(b, s, nh, head_dim)
+    v = layers.split_heads(xb, nh, head_dim)
     # B and C are shared by every head: broadcast views, never copies
     qh = C[:, :, None, :].expand(b, s, nh, state)
     kh = B[:, :, None, :].expand(b, s, nh, state)
@@ -324,7 +356,7 @@ def mamba2_block(params: Dict, x: torch.Tensor, *, expand: int, state: int,
         y, S = chunked_linear_recurrence(qh, kh, v, lf, li, chunk=chunk,
                                          state0=st.get("ssd"))
     y = (y + v * params["D"][None, None, :, None]).to(x.dtype)
-    y = y.reshape(b, s, di)
+    y = layers.merge_heads(y)
     out = _gated_rmsnorm(y, z, params["norm_w"]) @ params["out_proj"]
     new_state = ({"conv_x": ncx, "conv_B": ncb, "conv_C": ncc, "ssd": S}
                  if (decode or ssm_state is not None) else None)
@@ -355,14 +387,13 @@ def mlstm_block(params: Dict, x: torch.Tensor, *, expand: int, n_heads: int,
                 decode: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: [B,S,d]; state {"ssd": [B,H,hd,hd+1]} (updated in place in
     decode mode)."""
-    b, s, d = x.shape
-    di = expand * d
+    di = expand * x.shape[-1]
     hd = di // n_heads
     xi = x @ params["w_x"]
     z = x @ params["w_z"]
-    q = (xi @ params["wq"]).reshape(b, s, n_heads, hd)
-    k = (xi @ params["wk"]).reshape(b, s, n_heads, hd) * hd ** -0.5
-    v = (xi @ params["wv"]).reshape(b, s, n_heads, hd)
+    q = layers.split_heads(xi @ params["wq"], n_heads, hd)
+    k = layers.split_heads(xi @ params["wk"], n_heads, hd) * hd ** -0.5
+    v = layers.split_heads(xi @ params["wv"], n_heads, hd)
     gates = xi.float() @ params["gates"]                           # [B,S,2H]
     lf = _log_sigmoid(gates[..., :n_heads])                        # forget
     li = _log_sigmoid(gates[..., n_heads:])                        # input
@@ -380,7 +411,7 @@ def mlstm_block(params: Dict, x: torch.Tensor, *, expand: int, n_heads: int,
                                              state0=st.get("ssd"))
     y, nrm = y_ext[..., :hd], y_ext[..., hd:]
     y = y / torch.clamp(torch.abs(nrm), min=1.0)
-    y = y.reshape(b, s, di)
+    y = layers.merge_heads(y)
     out = _gated_rmsnorm(y, z, params["norm_w"]) @ params["out_proj"]
     new_state = ({"ssd": S} if (decode or ssm_state is not None) else None)
     return out, new_state
@@ -506,9 +537,9 @@ def slstm_block(params: Dict, x: torch.Tensor, *, n_heads: int,
 
     state: {"c","n","h"} each [B, H, hd] (read; the new state is new
     tensors)."""
-    b, s, d = x.shape
+    b, _, d = x.shape
     hd = d // n_heads
-    pre = (x @ params["w_in"]).float().reshape(b, s, n_heads, 4 * hd)
+    pre = layers.split_heads((x @ params["w_in"]).float(), n_heads, 4 * hd)
     r = params["r"].float()
     bias = params["bias"].reshape(n_heads, 4 * hd)
 
@@ -526,7 +557,7 @@ def slstm_block(params: Dict, x: torch.Tensor, *, n_heads: int,
         ys = carry[2][:, None]
     else:
         ys, carry = _slstm_scan(pre, r, bias, carry)
-    y = ys.reshape(b, s if not decode else 1, d).to(x.dtype)
+    y = layers.merge_heads(ys).to(x.dtype)
     out = y @ params["out_proj"]
     c, n, h = carry
     new_state = ({"c": c, "n": n, "h": h}

@@ -304,7 +304,10 @@ param_specs.last_decisions = {}
 
 def flat_specs(spec_tree) -> list:
     """The specs of a spec tree in leaf order (``torch.utils._pytree``'s
-    order of the parameter tree it was built from)."""
+    order of the parameter tree it was built from; a ``None`` subtree has
+    none)."""
+    if spec_tree is None:
+        return []
     if _is_spec(spec_tree):
         return [spec_tree]
     if isinstance(spec_tree, dict):

@@ -93,38 +93,124 @@ def place_gspmd(cfg, mesh, state: TrainState, batch: Dict, *,
     parameters' specs.  ``batch`` is a batch of the global shape (its
     values are not read).  The memory budget defaults to the mesh's
     device's (``parallel.sharding.device_budget``)."""
-    from repro_torch.dist.collectives import place
     from repro_torch.models import layers as L
     from repro_torch.parallel import sharding as shd
 
-    if hbm_bytes is None or mem_elems is None:
-        dev_bytes, dev_elems = shd.device_budget(mesh.device_type)
-        hbm_bytes = dev_bytes if hbm_bytes is None else hbm_bytes
-        mem_elems = dev_elems if mem_elems is None else mem_elems
     global_batch, seq = batch["tokens"].shape[:2]
     pspecs = shd.param_specs(cfg, state.params, mesh,
                              tokens_per_step=global_batch * seq,
-                             hbm_bytes=hbm_bytes, mem_elems=mem_elems)
+                             **_budget(mesh, hbm_bytes, mem_elems))
     decisions = dict(shd.param_specs.last_decisions)
     dp_all = shd.pure_dp(decisions)
     L.set_attention_mesh(
         mesh, ("pod", "data", "model") if dp_all else ("pod", "data"))
     bspecs = shd.batch_specs(cfg, mesh, batch, global_batch=global_batch,
                              include_model=dp_all)
-    specs = shd.flat_specs(pspecs)
-
-    def placed(tree):
-        flat, treedef = pytree.tree_flatten(tree)
-        return pytree.tree_unflatten(
-            [place(t, mesh, s) for t, s in zip(flat, specs)], treedef)
-
     if state.err is not None:
         raise ValueError("a compressed state (err) is data parallel over "
                          "its own axis; place_gspmd takes state without it")
-    state = TrainState(params=placed(state.params),
-                       opt=state.opt._replace(m=placed(state.opt.m),
-                                              v=placed(state.opt.v)))
+    state = TrainState(params=_place_tree(state.params, pspecs, mesh),
+                       opt=state.opt._replace(
+                           m=_place_tree(state.opt.m, pspecs, mesh),
+                           v=_place_tree(state.opt.v, pspecs, mesh)))
     return GspmdPlacement(state, mesh, pspecs, bspecs, decisions, dp_all)
+
+
+class ServePlacement(NamedTuple):
+    """What :func:`place_serve` assembles: the placed parameters, cache and
+    inputs, the mesh, their specs, the sharding decisions and whether the
+    model axis carries batch (``dp_all``)."""
+    params: Any
+    cache: Any
+    inputs: Dict
+    mesh: Any
+    param_specs: Any
+    cache_specs: Any
+    input_specs: Dict
+    decisions: Dict
+    dp_all: bool
+
+
+def place_serve(cfg, mesh, params, cache, inputs: Dict, *,
+                tokens_per_step: int, hbm_bytes: Optional[float] = None,
+                mem_elems: Optional[int] = None) -> ServePlacement:
+    """The reference's ``launch/dryrun.py::build_prefill`` /
+    ``build_decode`` assembly on a ``DeviceMesh``: ``param_specs`` for
+    serving (``train=False``) at ``tokens_per_step`` (a prefill's batch
+    times its prompt, a decode step's batch), ``pure_dp``, the attention
+    mesh pinned as :func:`place_gspmd` pins it, the cache placed by
+    ``cache_specs`` and the inputs (tokens, frames) by ``batch_specs``
+    over the cache's batch, the model axis carrying batch under
+    ``pure_dp``.  ``params``, ``cache`` and ``inputs`` are whole tensors,
+    the same on every rank (or ``meta`` tensors).  Run the family's
+    ``prefill`` / ``decode_step`` on the result under ``torch.no_grad()``
+    and ``collectives.replicated_region()`` (:func:`serve_step`); the
+    cache's K/V rows and recurrent states are written on each rank's
+    blocks (``layers.write_rows``, ``ssm._placed_step``)."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as shd
+
+    pspecs = shd.param_specs(cfg, params, mesh,
+                             tokens_per_step=tokens_per_step, train=False,
+                             **_budget(mesh, hbm_bytes, mem_elems))
+    decisions = dict(shd.param_specs.last_decisions)
+    dp_all = shd.pure_dp(decisions)
+    L.set_attention_mesh(
+        mesh, ("pod", "data", "model") if dp_all else ("pod", "data"))
+    batch = inputs["tokens"].shape[0]
+    cspecs = shd.cache_specs(cfg, mesh, cache, batch=batch,
+                             include_model=dp_all)
+    ispecs = shd.batch_specs(cfg, mesh, inputs, global_batch=batch,
+                             include_model=dp_all)
+    return ServePlacement(
+        _place_tree(params, pspecs, mesh), _place_tree(cache, cspecs, mesh),
+        _place_tree(inputs, ispecs, mesh), mesh, pspecs, cspecs, ispecs,
+        decisions, dp_all)
+
+
+def _budget(mesh, hbm_bytes, mem_elems) -> Dict:
+    """``param_specs``' memory budget: the given values, else the mesh's
+    device's (``parallel.sharding.device_budget``)."""
+    from repro_torch.parallel.sharding import device_budget
+    if hbm_bytes is None or mem_elems is None:
+        dev_bytes, dev_elems = device_budget(mesh.device_type)
+        hbm_bytes = dev_bytes if hbm_bytes is None else hbm_bytes
+        mem_elems = dev_elems if mem_elems is None else mem_elems
+    return {"hbm_bytes": hbm_bytes, "mem_elems": mem_elems}
+
+
+def _place_tree(tree, spec_tree, mesh):
+    """Every leaf of ``tree`` placed by its spec in ``spec_tree`` (the same
+    structure; ``None`` leaves stay ``None``)."""
+    from repro_torch.dist.collectives import place
+    from repro_torch.parallel import sharding as shd
+    placed = [place(t, mesh, s) for (_, _, t), s in
+              zip(shd._leaves(tree), shd.flat_specs(spec_tree))]
+    return shd._rebuild(tree, iter(placed))
+
+
+def serve_step(cfg, kind: str) -> Callable:
+    """``step(params, cache, inputs) -> (logits, cache)``: the family's
+    ``prefill`` (``kind="prefill"``; the encoder-decoder's takes
+    ``inputs["frames"]``) or ``decode_step`` (``"decode"``) on
+    ``inputs["tokens"]``, without autograd, plain tensors counting as
+    replicated beside placed ones."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.models.api import model_fns
+    fns = model_fns(cfg)
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"kind must be 'prefill' or 'decode', got {kind!r}")
+
+    def step(params, cache, inputs):
+        with torch.no_grad(), C.replicated_region():
+            if kind == "decode":
+                return fns.decode_step(params, cfg, cache, inputs["tokens"])
+            if cfg.family == "encdec":
+                return fns.prefill(params, cfg, cache, inputs["frames"],
+                                   inputs["tokens"])
+            return fns.prefill(params, cfg, cache, inputs["tokens"])
+
+    return step
 
 
 def _value_and_grad(loss_fn, params, batch, placed: bool = False):

@@ -32,6 +32,9 @@ import textwrap
 import pytest
 
 torch = pytest.importorskip("torch")
+# torch on one thread in this process: the ops here are smoke-sized, and
+# beside the other pytest-xdist workers more threads only spin
+torch.set_num_threads(1)
 
 from repro_torch.analysis import astlint, doclint, verify  # noqa: E402
 from repro_torch.analysis.collect import (Collective,  # noqa: E402

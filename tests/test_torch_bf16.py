@@ -23,6 +23,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# torch on one thread in this process: the ops here are smoke-sized, and
+# beside the other pytest-xdist workers more threads only spin
+torch.set_num_threads(1)
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.dist.lm import lm_step_products  # noqa: E402

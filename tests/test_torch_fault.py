@@ -22,6 +22,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# torch on one thread in this process: the ops here are smoke-sized, and
+# beside the other pytest-xdist workers more threads only spin
+torch.set_num_threads(1)
 
 from repro_torch.ckpt import checkpointer as ck  # noqa: E402
 from repro_torch.fault.inject import (FaultInjector, FaultPlan,  # noqa: E402

@@ -30,6 +30,9 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+# torch on one thread in this process: the ops here are smoke-sized, and
+# beside the other pytest-xdist workers more threads only spin
+torch.set_num_threads(1)
 
 from repro.core import sharding_synthesis as jss  # noqa: E402
 from repro.core.problem import resnet50_layers as jlayers  # noqa: E402

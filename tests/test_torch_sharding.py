@@ -41,6 +41,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# torch on one thread in this process: the ops here are smoke-sized, and
+# beside the other pytest-xdist workers more threads only spin
+torch.set_num_threads(1)
 
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -430,7 +433,9 @@ def gloo_rank(rank, inputs, cases, micro=(), nograd=()):
 _JAX_GSPMD = textwrap.dedent("""
     import dataclasses, json, os, sys
     os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
-                               "--xla_backend_optimization_level=0")
+                               "--xla_backend_optimization_level=0 "
+                               "--xla_cpu_multi_thread_eigen=false "
+                               "intra_op_parallelism_threads=1")
     import jax, jax.numpy as jnp, numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
     from repro.configs import get_config
@@ -515,6 +520,47 @@ _JAX_GSPMD = textwrap.dedent("""
 """)
 
 
+#: how many of the port's GSPMD fixtures (a 4-rank gloo launch beside a
+#: 4-device JAX subprocess, each ~5 busy processes) run at once across
+#: pytest-xdist's workers: one, so that the reference's 8-device
+#: subprocess tests running beside them on the other workers keep their
+#: share of the host
+LAUNCH_SLOTS = 1
+
+
+@contextlib.contextmanager
+def launch_slot():
+    """Hold one of :data:`LAUNCH_SLOTS` slots (``flock`` on files in the
+    run's temporary directory, which every worker shares) while a fixture
+    runs its gloo launch and JAX subprocess.  Under ``-n 6 --dist
+    loadfile`` the five such files (``test_torch_sharding.py``,
+    ``_gspmd_step``, ``_gspmd_flash``, ``_gspmd_zoo``, ``_dryrun``) sort
+    together and start at once, 25 busy processes on the host; each
+    fixture then ran 3-6x its time alone (192 s against 56 s for the
+    flash case, -n 5 on an 8-core host), near the launch's 600 s limit."""
+    import fcntl
+    import tempfile
+    import time
+    paths = [os.path.join(tempfile.gettempdir(),
+                          f"repro_torch_gspmd_launch.{i}.lock")
+             for i in range(LAUNCH_SLOTS)]
+    while True:
+        for path in paths:
+            f = open(path, "a")
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except OSError:
+                f.close()
+                continue
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+                f.close()
+            return
+        time.sleep(0.5)
+
+
 def run_cases(tmp_path_factory, cases, micro=(), nograd=()):
     """The 4-rank gloo launch (:func:`gloo_rank`), the one-rank plain runs
     and, concurrently, the 4-device JAX subprocess, for ``cases``; the
@@ -541,23 +587,26 @@ def run_cases(tmp_path_factory, cases, micro=(), nograd=()):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(_ROOT, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    ref = subprocess.Popen(
-        [sys.executable, "-c", _JAX_GSPMD, in_path, jax_out,
-         json.dumps([cases, LAYOUT_SPECS, LR])],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        port = run_spmd(gloo_rank, 4, inputs, cases, micro, nograd,
-                        device="cpu")
-        plain = {name: _plain_run(_cfg(arch, fsdp), inputs[arch],
-                                  _batches(_cfg(arch, fsdp), batch, seq),
-                                  micro=name in micro,
-                                  nograd=name in nograd)
-                 for name, arch, _, batch, seq, fsdp, _ in cases}
-        _, err = ref.communicate(timeout=600)
-    finally:
-        if ref.poll() is None:
-            ref.kill()
-            ref.communicate()
+    with launch_slot():
+        ref = subprocess.Popen(
+            [sys.executable, "-c", _JAX_GSPMD, in_path, jax_out,
+             json.dumps([cases, LAYOUT_SPECS, LR])],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            port = run_spmd(gloo_rank, 4, inputs, cases, micro, nograd,
+                            device="cpu")
+            plain = {name: _plain_run(_cfg(arch, fsdp), inputs[arch],
+                                      _batches(_cfg(arch, fsdp), batch,
+                                               seq),
+                                      micro=name in micro,
+                                      nograd=name in nograd)
+                     for name, arch, _, batch, seq, fsdp, _ in cases}
+            _, err = ref.communicate(timeout=600)
+        finally:
+            if ref.poll() is None:
+                ref.kill()
+                ref.communicate()
     assert ref.returncode == 0, err
     return {"port": port, "plain": plain, "jax": dict(np.load(jax_out))}
 

@@ -25,6 +25,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# torch on one thread in this process: the ops here are smoke-sized, and
+# beside the other pytest-xdist workers more threads only spin
+torch.set_num_threads(1)
 
 # the JAX package is imported inside the tests: the 8 spawned ranks import
 # this module for _port_rank and need only torch

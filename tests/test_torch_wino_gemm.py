@@ -18,6 +18,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# torch on one thread in this process: the ops here are smoke-sized, and
+# beside the other pytest-xdist workers more threads only spin
+torch.set_num_threads(1)
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.winograd import wino_gemm, wino_gemm_plain  # noqa: E402
