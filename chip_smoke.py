@@ -282,7 +282,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    p50 and device-busy (``{"phase": "dryrun", "step": ...}``); (c)
    llama3.2-1b ``train_4k`` and ``decode_32k`` on the fake 16x16 mesh
    at full width (``launch.dryrun.run_cell``), each record printed with
-   its seconds (``{"phase": "dryrun", "cell": ...}``).
+   its seconds (``{"phase": "dryrun", "cell": ...}``); (d) the same for
+   the cheapest cell of each class of placement that torch 2.11's
+   DTensor refused before the models pinned around it
+   (``DRYRUN_VIEW_CELLS``: gemma3-4b ``train_4k``, a projection
+   flattening a sequence split over model; granite-moe ``decode_32k``,
+   the MoE combine; gemma3-12b ``train_4k``, two gradients split on
+   swapped mesh dims), on the card's own torch, gated
+   ``status == "ok"`` and its argument bytes equal to the CPU dry run's
+   on torch 2.13.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -391,6 +399,19 @@ DRYRUN_SLOTS, DRYRUN_PROMPT, DRYRUN_STEPS = 8, 64, 8
 #: each block up to 512 bytes and adds the step's cuBLAS workspace
 DRYRUN_PEAK_BAND = (0.95, 1.05)
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"))
+#: phase 13 (d): the cheapest 16x16 cell of each class of placement that
+#: torch 2.11's DTensor refused before the models pinned around it, with
+#: its per-device argument bytes as the CPU dry run on torch 2.13 records
+#: them (``python -m repro_torch.launch.dryrun --device cpu``)
+DRYRUN_VIEW_CELLS = (
+    # a projection's view of [B, S, d] with S split over model
+    ("gemma3-4b", "train_4k", 2930111488),
+    # the MoE combine's flattened (C, E) with E split over model
+    ("granite-moe-1b-a400m", "decode_32k", 981568292),
+    # a backward sum of two gradients split on swapped mesh dims (an
+    # FSDP-split embedding table, a normed input read by three products)
+    ("gemma3-12b", "train_4k", 497612288),
+)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3722,7 +3743,7 @@ def dryrun_phase(card, device="cuda"):
             print(json.dumps({"phase": "dryrun", "card": card, "step": name,
                               "mesh": {"data": 1, "model": 1},
                               "dtype": "float32", **st}), flush=True)
-        cells = []
+        cells, views = [], []
         with tempfile.TemporaryDirectory() as out_dir:
             for arch, shape in DRYRUN_CELLS:
                 t0 = time.perf_counter()
@@ -3732,6 +3753,17 @@ def dryrun_phase(card, device="cuda"):
                 print(json.dumps({"phase": "dryrun", "card": card, "cell":
                                   f"{arch} {shape} {rec['mesh']}",
                                   **cells[-1]}), flush=True)
+            # (d): a cell of each class torch 2.11 refused
+            for arch, shape, arg_bytes in DRYRUN_VIEW_CELLS:
+                t0 = time.perf_counter()
+                rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                                      out_dir=out_dir, device=device)
+                views.append(dict(rec, seconds=time.perf_counter() - t0,
+                                  cpu_argument_bytes=arg_bytes))
+                print(json.dumps({"phase": "dryrun", "card": card, "cell":
+                                  f"{arch} {shape} {rec['mesh']}",
+                                  "refused_on_2_11": True, **views[-1]}),
+                      flush=True)
     finally:
         set_attention_mesh(None)
         end_world()
@@ -3755,9 +3787,14 @@ def dryrun_phase(card, device="cuda"):
         check(lo <= st["peak_ratio"] <= hi,
               f"dry run {name}: predicted / allocator peak "
               f"{st['peak_ratio']:.4f} outside {DRYRUN_PEAK_BAND}")
-    for rec in cells:
+    for rec in cells + views:
         check(rec["status"] == "ok", f"dry run cell {rec['arch']} "
               f"{rec['shape']}: {rec.get('error', rec['status'])}")
+    for rec in views:
+        got = rec["memory_analysis"]["argument_size_in_bytes"]
+        check(got == rec["cpu_argument_bytes"],
+              f"dry run cell {rec['arch']} {rec['shape']}: argument bytes "
+              f"{got} != the CPU dry run's {rec['cpu_argument_bytes']}")
     return r["launches"]
 
 

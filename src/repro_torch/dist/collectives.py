@@ -57,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import types
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -849,27 +850,120 @@ def whole_along(x, dim: int, *, tag: str, axes=None):
     return x.redistribute(x.device_mesh, dst)
 
 
-class _WholeGrad(torch.autograd.Function):
-    """The identity whose backward makes the gradient whole along a dim
-    (:func:`whole_along`)."""
+def split_as(x, dim: int, ref, ref_dim: int, *, tag: str):
+    """``x`` with ``dim`` split over the model axis where that axis splits
+    ``ref``'s ``ref_dim`` and ``x`` is a replica over it: a slice of each
+    rank's block, no collective (its backward gathers the gradient); noted
+    under ``gspmd_<tag>``.  Anything else as it is.  The input of a
+    product whose weight the model axis splits by rows then keeps only its
+    own columns, and the weight's gradient is a product of those columns,
+    not the whole gradient computed on every model rank and cut."""
+    if not (is_placed(x) and is_placed(ref)):
+        return x
+    from torch.distributed.tensor import Shard
+    dim, ref_dim = dim % x.dim(), ref_dim % ref.dim()
+    names = _mesh_dim_names(x.device_mesh)
+    dst = [Shard(dim) if names[i] == "model" and p.is_replicate()
+           and q.is_shard(ref_dim) else p
+           for i, (p, q) in enumerate(zip(x.placements, ref.placements))]
+    if tuple(dst) == tuple(x.placements):
+        return x
+    _note_redistribute(x, dst, "gspmd_" + tag)
+    return x.redistribute(x.device_mesh, dst)
+
+
+def flattenable(x, *, tag: str):
+    """``x`` ready for a view that flattens all its dims but the last into
+    one, as a matmul of ``x`` does: every such dim of more than one
+    element behind the first is made whole (:func:`whole_along`, noted
+    under ``gspmd_<tag>``); a plain tensor as it is.  torch 2.11's
+    DTensor keeps a flattened group split only through its leading dim
+    and refuses a view that would move the rest; torch 2.13 takes it, and
+    gathers the same dims at the product."""
+    if not is_placed(x) or x.dim() < 3:
+        return x
+    dims = [d for d in range(x.dim() - 1) if x.shape[d] > 1]
+    for d in dims[1:]:
+        x = whole_along(x, d, tag=tag)
+    return x
+
+
+def contiguous_blocks(x):
+    """A DTensor whose block on this rank is laid out densely in the order
+    of its global strides (a copy where it is not); anything else as it
+    is.  A view's backward views the gradient by the global strides, and
+    a block that a redistribution left in another order cannot be
+    viewed so (DTensor's own ``contiguous`` reads the global strides)."""
+    if not is_placed(x):
+        return x
+    order = sorted(range(x.dim()), key=lambda d: -x.stride()[d])
+    local = x.to_local()
+    if local.permute(order).is_contiguous():
+        return x
+    from torch.distributed.tensor import DTensor
+    inv = [order.index(d) for d in range(x.dim())]
+    local = local.permute(order).contiguous().permute(inv)
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+class _GradMap(torch.autograd.Function):
+    """The identity whose backward passes the gradient through ``fn``."""
 
     @staticmethod
-    def forward(ctx, x, dim, tag):
-        ctx.dim, ctx.tag = dim, tag
+    def forward(ctx, x, fn):
+        ctx.fn = fn
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return whole_along(g, ctx.dim, tag=ctx.tag), None, None
+        return ctx.fn(g), None
+
+
+def _grad_map(x, fn):
+    """``x`` itself, its gradient passed through ``fn`` before it flows
+    back past this point (a DTensor that requires grad; anything else
+    passes as it is)."""
+    if not (is_placed(x) and x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _GradMap.apply(x, fn)
+
+
+def grad_contiguous(x):
+    """``x`` itself, the blocks of its gradient laid out as its global
+    strides say before it flows back past this point
+    (:func:`contiguous_blocks`)."""
+    return _grad_map(x, contiguous_blocks)
+
+
+def grad_flattenable(x, *, tag: str):
+    """``x`` itself, its gradient made :func:`flattenable` before it flows
+    back past this point: the backward of a product views the gradient
+    of its output as the forward viewed the output."""
+    if x.dim() < 3:
+        return x
+    return _grad_map(
+        x, lambda g: contiguous_blocks(flattenable(g, tag=tag)))
+
+
+def grad_placed_as(x, *, tag: str):
+    """``x`` itself, its gradient placed as ``x`` is (a pending sum of
+    ``x``'s as a replica; the gradient's own pending sums summed, noted
+    under ``gspmd_<tag>``) before it flows back past this point: a
+    view's backward then views it as the forward viewed ``x``."""
+    if not is_placed(x):
+        return x
+    # the placements alone: the block itself is not kept
+    ref = types.SimpleNamespace(placements=x.placements,
+                                device_mesh=x.device_mesh)
+    return _grad_map(x, functools.partial(constrain_like, ref=ref, tag=tag))
 
 
 def grad_whole_along(x, dim: int, *, tag: str):
     """``x`` itself, its gradient made whole along ``dim`` on every rank
-    before it flows back past this point (a DTensor that requires grad;
-    anything else passes as it is)."""
-    if not (is_placed(x) and x.requires_grad and torch.is_grad_enabled()):
-        return x
-    return _WholeGrad.apply(x, dim, tag)
+    before it flows back past this point."""
+    return _grad_map(x, functools.partial(whole_along, dim=dim, tag=tag))
 
 
 def constrain(x, mesh: DeviceMesh, spec, *, tag: str):

@@ -134,22 +134,26 @@ def model_flops(cfg, kind: str, tokens: int, n_dev: int) -> float:
     return mult * cfg.active_param_count() * tokens / n_dev
 
 
-def analyze_built(built: Built) -> Dict[str, Any]:
-    """Run a built step once under the op counter (``op_analysis``)."""
+def analyze_built(built: Built, *, sites: bool = False) -> Dict[str, Any]:
+    """Run a built step once under the op counter (``op_analysis``);
+    ``sites`` adds its dot FLOPs by site."""
     from repro_torch.launch.op_analysis import analyze
-    return analyze(built.step, built.args)
+    return analyze(built.step, built.args, sites=sites)
 
 
 # ------------------------------------------------------------------ runner
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              out_dir: str = OUT_DIR, device=None,
-             memory: Dict[str, float] = None) -> Dict[str, Any]:
+             memory: Dict[str, float] = None,
+             sites: bool = False) -> Dict[str, Any]:
     """One cell's record (also written to ``out_dir``): the reference's
     keys, with the step's place and trace seconds where it has its lower
     and compile seconds.  ``memory`` is the budget given to
     ``param_specs`` (``hbm_bytes``, ``mem_elems``; :func:`budget`, the
-    H100's, by default)."""
+    H100's, by default).  ``sites`` adds ``dot_flops_by_site``: the
+    per-device dot FLOPs by where the port ran each dot (two torch
+    versions' records then name the products whose placements differ)."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import make_production_mesh
@@ -176,7 +180,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     try:
         built = builder(cfg, mesh, shape_name, **memory)
         t_place = time.time() - t0
-        stats = analyze_built(built)
+        stats = analyze_built(built, sites=sites)
     finally:
         L.set_attention_mesh(None)
     t_trace = time.time() - t0 - t_place
@@ -207,6 +211,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                                if flops_dev else None),
         "tp_decisions": built.decisions,
         "hbm_budget_bytes": memory["hbm_bytes"],
+        **({"dot_flops_by_site": stats["dot_sites"]} if sites else {}),
     })
     return _write(rec, out_dir)
 
@@ -230,11 +235,11 @@ def _cell_job(task) -> int:
     import torch
 
     from repro_torch.dist.spawn import end_world
-    arch, shape, multi_pod, out_dir, device = task
+    arch, shape, multi_pod, out_dir, device, sites = task
     torch.set_num_threads(1)
     try:
         run_cell(arch, shape, multi_pod=multi_pod, out_dir=out_dir,
-                 device=device)
+                 device=device, sites=sites)
         return 0
     except Exception:
         _write({"arch": arch, "shape": shape,
@@ -264,6 +269,8 @@ def main(argv=None):
                     help="the mesh's device type: cuda (default) or cpu")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells run at once, each in a process of its own")
+    ap.add_argument("--dot-sites", action="store_true",
+                    help="add each cell's dot FLOPs by site to its record")
     args = ap.parse_args(argv)
 
     archs = list(ALIASES) if args.arch == "all" else [args.arch]
@@ -271,8 +278,8 @@ def main(argv=None):
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     # the prefill cells first: they take the longest (the flash loop runs
     # unrolled)
-    tasks = sorted(((a, s, mp, args.out, args.device) for a in archs
-                    for s in shapes for mp in meshes),
+    tasks = sorted(((a, s, mp, args.out, args.device, args.dot_sites)
+                    for a in archs for s in shapes for mp in meshes),
                    key=lambda t: SHAPES[t[1]].kind != "prefill")
     t0 = time.time()
     if args.jobs > 1:

@@ -123,13 +123,16 @@ class OpCounter(TorchDispatchMode):
     now.  Storages named by :meth:`hold` (the arguments) are not counted
     as temporaries."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         self.flops = 0.0
         self.dot_flops = 0.0
         self.bytes = 0.0
         self.collectives: list = []
         self.by_op: Dict[str, list] = {}
+        #: dot FLOPs by where the port ran the dot (``sites=True``): the
+        #: innermost frames of its models, or the backward node's name
+        self.dot_sites: Dict[str, float] = {} if sites else None
         self.live_bytes = 0
         self.temp_peak_bytes = 0
         self._known: Dict[int, int] = {}
@@ -177,6 +180,9 @@ class OpCounter(TorchDispatchMode):
         self.flops += flops
         self.dot_flops += dot
         self.bytes += nbytes
+        if dot and self.dot_sites is not None:
+            site = " < ".join(reversed(_port_frames(2)))
+            self.dot_sites[site] = self.dot_sites.get(site, 0.0) + dot
 
     def _collective(self, func, name: str, args, out) -> None:
         from repro_torch.dist.collectives import group_size
@@ -315,6 +321,150 @@ def _cost(name: str, args, ins, outs):
     return float(sum(t.numel() for t in outs)), moved, 0.0
 
 
+def strict_view_refusal(placements, shape, new_shape,
+                        mesh_sizes) -> list:
+    """Why torch 2.11's DTensor refuses a ``view`` (or ``_unsafe_view``)
+    of a tensor of global ``shape``, placed by ``placements`` on a mesh
+    of ``mesh_sizes``, to ``new_shape``: one line per refusal, none when
+    it takes the view.  Its rule (``_view_ops.propagate_shape_and_
+    sharding`` with ``strict_view``, which may not redistribute) keeps a
+    flattened group split only through the group's leading dim, split
+    evenly, and a split dim only through its leading piece, divisible by
+    the mesh dim; torch 2.13 also carries a split non-leading dim
+    (``_StridedShard``).  The dims map as both versions' ``view_groups``
+    maps them."""
+    from torch.distributed.tensor._ops._view_ops import (Flatten, InputDim,
+                                                         Split, view_groups)
+    why = []
+
+    def mesh_dim_of(dim):
+        # the first mesh dim that splits tensor dim ``dim``, as 2.11 reads
+        for i, p in enumerate(placements):
+            if p.is_shard() and getattr(p, "dim", None) == dim:
+                return i
+        return None
+
+    def leading(cmd):
+        if isinstance(cmd, InputDim):
+            return cmd
+        if isinstance(cmd, Flatten):
+            dims = [d.input_dim for d in cmd.input_dims]
+            for i, dim in enumerate(dims):
+                m = mesh_dim_of(dim)
+                if m is None:
+                    continue
+                if i > 0:
+                    why.append(f"flattens dim {dim} (split on mesh dim {m}) "
+                               f"behind dim {dims[0]}")
+                elif shape[dim] % mesh_sizes[m]:
+                    why.append(f"flattens dim {dim} of {shape[dim]}, split "
+                               f"unevenly on mesh dim {m}")
+            return cmd.input_dims[0]
+        if isinstance(cmd, Split):
+            in_dim = leading(cmd.input_dim)
+            if cmd.split_id == 0 and in_dim is not None:
+                m = mesh_dim_of(in_dim.input_dim)
+                if m is not None and cmd.group_shape[0] % mesh_sizes[m]:
+                    why.append(f"splits dim {in_dim.input_dim} (split on "
+                               f"mesh dim {m}) into {cmd.group_shape}")
+            return in_dim if cmd.split_id == 0 else None
+        return None
+
+    # view_groups maps dims: no collective
+    rule = view_groups(tuple(shape), tuple(new_shape))  # raw-collective-ok
+    for cmd in rule:
+        leading(cmd)
+    return why
+
+
+#: the pointwise ops torch 2.11's DTensor lets carry a pending sum
+_LINEAR_POINTWISE = ("add.Tensor", "sub.Tensor", "mul.Tensor")
+
+
+def pending_sum_refusal(placements: list, mesh_sizes) -> list:
+    """Why torch 2.11's DTensor refuses a linear pointwise op (``add``,
+    ``sub``, ``mul``) of inputs placed by ``placements`` (one list per
+    DTensor input): one line per refusal, none when it runs it.  Its rule
+    (``_pointwise_ops.pointwise_strategy``) follows the input split into
+    the most blocks (the first of a tie) and keeps that input's pending
+    sums in the output, so every other input is redistributed to a
+    pending sum on those mesh dims; from a split that is not implemented
+    (``redistribute from S to P not supported yet``).  Torch 2.13 weighs
+    other layouts and runs it."""
+    def blocks(pl):
+        n = 1
+        for p, size in zip(pl, mesh_sizes):
+            if p.is_shard():
+                n *= size
+        return n
+
+    followed = max(range(len(placements)),
+                   key=lambda i: (blocks(placements[i]), -i))
+    why = []
+    for m, p in enumerate(placements[followed]):
+        if not (p.is_partial("sum") or p.is_partial("avg")):
+            continue
+        for i, other in enumerate(placements):
+            if i != followed and other[m].is_shard():
+                why.append(f"input {i}'s split on mesh dim {m} made a "
+                           f"pending sum to follow input {followed}")
+    return why
+
+
+class ViewCheck(TorchDispatchMode):
+    """Records every DTensor op run inside it that torch 2.11's DTensor
+    would refuse: a view (:func:`strict_view_refusal`) and a linear
+    pointwise op (:func:`pending_sum_refusal`), with its inputs' global
+    shapes and placements, the view's shape and where it ran in the port
+    (``refused``: one dict each).  It changes nothing: every op runs as
+    it would without it."""
+
+    def __init__(self):
+        super().__init__()
+        self.refused: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if func in (torch.ops.aten.view.default,
+                    torch.ops.aten._unsafe_view.default) \
+                and isinstance(args[0], DTensor):
+            x, new_shape = args[0], tuple(args[1])
+            why = strict_view_refusal(x.placements, tuple(x.shape),
+                                      new_shape, x.device_mesh.shape)
+            if why:
+                self.refused.append({
+                    "op": str(func), "shape": tuple(x.shape),
+                    "placements": str(x.placements),
+                    "new_shape": new_shape, "why": why,
+                    "at": _port_frames()})
+        elif func.namespace == "aten" and func.__name__ in _LINEAR_POINTWISE:
+            ts = [a for a in args if isinstance(a, DTensor)]
+            if len(ts) > 1:
+                why = pending_sum_refusal([t.placements for t in ts],
+                                          ts[0].device_mesh.shape)
+                if why:
+                    self.refused.append({
+                        "op": str(func),
+                        "shape": tuple(tuple(t.shape) for t in ts),
+                        "placements": str([t.placements for t in ts]),
+                        "why": why, "at": _port_frames()})
+        return func(*args, **kwargs)
+
+
+def _port_frames(n: int = 3) -> list:
+    """The innermost ``n`` frames of the port's models on the stack
+    (``file:line function``)."""
+    import os
+    import traceback
+    frames = [f for f in traceback.extract_stack()
+              if f"repro_torch{os.sep}models" in f.filename]
+    node = torch._C._current_autograd_node()
+    return ([f"backward: {node.name()}"] if node is not None else []) + [
+        f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+        for f in frames[-n:]]
+
+
 def parse_collectives(events) -> Dict[str, Any]:
     """Per-kind wire-byte totals and counts of recorded collectives
     (``OpCounter.collectives``), by :func:`ring_wire` -- the keys of the
@@ -328,17 +478,19 @@ def parse_collectives(events) -> Dict[str, Any]:
             "total_wire_bytes": sum(out.values())}
 
 
-def analyze(step, args: Any, *, hold: Any = None) -> Dict[str, Any]:
+def analyze(step, args: Any, *, hold: Any = None,
+            sites: bool = False) -> Dict[str, Any]:
     """Run ``step(*args)`` under an :class:`OpCounter` and return the
     reference's ``analyze_hlo`` keys (``flops``, ``hbm_bytes``,
     ``wire_bytes``, ``coll_counts``, ``total_wire_bytes``) with the dot
     FLOPs, the per-op table, the argument, output and temp bytes, and
     the step's output.  ``hold`` (default ``args``) is the state the step
     starts from: its argument bytes are its blocks' bytes on this
-    device."""
+    device.  ``sites`` adds ``dot_sites``, the dot FLOPs by where the
+    port ran each dot (:attr:`OpCounter.dot_sites`)."""
     from repro_torch.dist.collectives import local_part
     held = [local_part(t) for t in _tensors(args if hold is None else hold)]
-    counter = OpCounter()
+    counter = OpCounter(sites=sites)
     counter.hold(held)
     with counter:
         out = step(*args)
@@ -356,5 +508,6 @@ def analyze(step, args: Any, *, hold: Any = None) -> Dict[str, Any]:
                                       {id(t): t for t in held}.values()),
         "output_size_in_bytes": counter.held_bytes(outs),
         "temp_size_in_bytes": counter.temp_peak_bytes,
+        **({"dot_sites": counter.dot_sites} if sites else {}),
         "out": out,
     }

@@ -68,25 +68,30 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor
     positions = _positions(b, t, frames.device)
 
     def layer(blk, h):
-        h = h + L.attention(blk["attn"],
-                            L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
-                            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                            head_dim=cfg.head_dim, positions=positions,
-                            theta=cfg.rope_theta, causal=False)
+        h = L.tp_residual(h + L.attention(
+            blk["attn"], L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, positions=positions,
+            theta=cfg.rope_theta, causal=False))
         return h + L.mlp(blk["mlp"], L.rmsnorm(h, blk["ln2"], cfg.norm_eps),
                          "gelu")
 
     layer = L.remat(layer, cfg.remat)
-    h = frames.to(cfg.torch_dtype)
+    # under a pinned mesh the frames, then each sub-block's output,
+    # sequence split over model (``layers.tp_residual``), as the decoder
+    # LM's residual: DTensor otherwise lays out the first MLP's input so
+    # that each model rank multiplies the whole ``w_up``
+    h = L.tp_residual(frames.to(cfg.torch_dtype))
     for blk in params["enc"]:
-        h = layer(blk, h)
+        h = L.tp_residual(layer(blk, h))
     return L.rmsnorm(h, params["ln_enc"], cfg.norm_eps)
 
 
 def _xkv(blk: Dict, enc_out: torch.Tensor, cfg: ModelConfig):
-    k = L.split_heads(enc_out @ blk["xattn"]["wk"], cfg.n_kv_heads,
+    mm = L._dense_mm
+    k = L.split_heads(mm(enc_out, blk["xattn"]["wk"]), cfg.n_kv_heads,
                       cfg.head_dim)
-    v = L.split_heads(enc_out @ blk["xattn"]["wv"], cfg.n_kv_heads,
+    v = L.split_heads(mm(enc_out, blk["xattn"]["wv"]), cfg.n_kv_heads,
                       cfg.head_dim)
     return k, v
 
@@ -117,18 +122,20 @@ def decode_train(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = _positions(b, s, tokens.device)
 
     def layer(blk, h):
-        h = h + L.attention(blk["attn"],
-                            L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
-                            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                            head_dim=cfg.head_dim, positions=positions,
-                            theta=cfg.rope_theta, causal=True)
-        h = h + _cross(blk, h, *_xkv(blk, enc_out, cfg), cfg)
+        h = L.tp_residual(h + L.attention(
+            blk["attn"], L.rmsnorm(h, blk["ln1"], cfg.norm_eps),
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, positions=positions,
+            theta=cfg.rope_theta, causal=True))
+        h = L.tp_residual(h + _cross(blk, h, *_xkv(blk, enc_out, cfg),
+                                        cfg))
         return h + _mlp(blk, h, cfg)
 
     layer = L.remat(layer, cfg.remat)
-    h = L.embed(params["emb"], tokens)
+    # the residual pinned as the encoder's (:func:`encode`)
+    h = L.tp_residual(L.embed(params["emb"], tokens))
     for blk in params["dec"]:
-        h = layer(blk, h)
+        h = L.tp_residual(layer(blk, h))
     return L.rmsnorm(h, params["ln_f"], cfg.norm_eps)
 
 
@@ -167,16 +174,16 @@ def prefill_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
     cache with ``len = S``."""
     enc_out = encode(params, cfg, frames)
     b, s = tokens.shape
-    h = L.embed(params["emb"], tokens)
+    h = L.tp_residual(L.embed(params["emb"], tokens))
     positions = _positions(b, s, tokens.device)
     # the cross K/V go into the cache in place when it holds this many
     # frames; else, as the reference returns them, as new leaves
     in_place = cache["xk"].shape[2] == enc_out.shape[1]
     xks, xvs = [], []
     for i, blk in enumerate(params["dec"]):
-        h = h + lm._prefill_attention(blk, h, cache["k"][i], cache["v"][i],
-                                      cfg=cfg, positions=positions,
-                                      window=0)
+        h = L.tp_residual(h + lm._prefill_attention(
+            blk, h, cache["k"][i], cache["v"][i], cfg=cfg,
+            positions=positions, window=0))
         xk, xv = _xkv(blk, enc_out, cfg)
         if in_place:
             cache["xk"][i] = xk
@@ -184,8 +191,8 @@ def prefill_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
         else:
             xks.append(xk.to(cfg.torch_dtype))
             xvs.append(xv.to(cfg.torch_dtype))
-        h = h + _cross(blk, h, xk, xv, cfg)
-        h = h + _mlp(blk, h, cfg)
+        h = L.tp_residual(h + _cross(blk, h, xk, xv, cfg))
+        h = L.tp_residual(h + _mlp(blk, h, cfg))
     length = torch.tensor(s, dtype=torch.int32, device=tokens.device)
     out = dict(cache, len=length)
     if not in_place:
@@ -203,17 +210,20 @@ def decode_step_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
     # under a pinned mesh each residual sum is pinned batch over data and
     # whole over model (``layers.replicate_model``), so each projection
     # runs on its weight's shard and none is gathered
-    pin = L.replicate_model
+    pin, mm = L.replicate_model, L._dense_mm
     for i, blk in enumerate(params["dec"]):
         h = pin(h + lm._cached_attention(blk, h, cache["k"][i],
                                          cache["v"][i], cfg=cfg, pos=pos,
                                          window=0))
         # cross attention against the cached encoder K/V
-        xq = L.split_heads(L.rmsnorm(h, blk["ln2"], cfg.norm_eps)
-                           @ blk["xattn"]["wq"], nh, hd)
+        xq = L.split_heads(mm(L.rmsnorm(h, blk["ln2"], cfg.norm_eps),
+                              blk["xattn"]["wq"]), nh, hd)
+        # the query whole over model, as the self attention's
+        # (``lm._cached_attention``): the scores split along the keys
+        xq = pin(xq)
         xo = L.attention_scores(xq, L._repeat_kv(cache["xk"][i], nh // g),
                                 L._repeat_kv(cache["xv"][i], nh // g),
                                 mask=None, scale=hd ** -0.5)
-        h = pin(h + xo.reshape(b, 1, nh * hd) @ blk["xattn"]["wo"])
+        h = pin(h + mm(xo.reshape(b, 1, nh * hd), blk["xattn"]["wo"]))
         h = pin(h + _mlp(blk, h, cfg))
     return lm._head(params, cfg, h, None), dict(cache, len=pos + 1)

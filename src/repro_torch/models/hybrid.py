@@ -158,7 +158,7 @@ def decode_step_hybrid(params: Dict, cfg: ModelConfig, cache: Dict,
         st = {key: cache[key][i] for key in MAMBA_STATES}
         y, st2 = _mamba(blk, h, cfg, ssm_state=st, decode=True)
         ssm.write_back(cache, i, st, st2)
-        h = h + y
+        h = L.tp_replicate(h + y)
         if flag:
             h = _shared_block_cached(params["shared"], h, cache["k"][app],
                                      cache["v"][app], cfg=cfg, pos=pos)
@@ -182,11 +182,11 @@ def prefill_hybrid(params: Dict, cfg: ModelConfig, cache: Dict,
         st = {key: cache[key][i] for key in MAMBA_STATES}
         y, st2 = _mamba(blk, h, cfg, ssm_state=st)
         ssm.write_back(cache, i, st, st2)
-        h = h + y
+        h = L.tp_residual(h + y)
         if flag:
-            h = lm._prefill_block(shared, h, cache["k"][app],
-                                  cache["v"][app], cfg=cfg,
-                                  positions=positions, window=0)
+            h = L.tp_residual(lm._prefill_block(
+                shared, h, cache["k"][app], cache["v"][app], cfg=cfg,
+                positions=positions, window=0))
             app += 1
     length = torch.tensor(s, dtype=torch.int32, device=tokens.device)
     return lm._head(params, cfg, h[:, -1:], None), dict(cache, len=length)

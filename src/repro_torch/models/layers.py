@@ -22,10 +22,14 @@ The GSPMD pins (``set_attention_mesh``, ``_shard_heads``,
 constraints of its ``gspmd`` mode: once ``train.step.place_gspmd`` has set
 a mesh, each redistributes a DTensor to its spec
 (``dist.collectives.constrain``); without a mesh each is the identity.
-Under a pinned mesh the flash branch of :func:`attention_core` expands
-k/v, pins q/k/v heads over the model axis and runs
-:class:`_FlashAttention` on each rank's blocks
-(``dist.collectives.local_map``).
+Under a pinned mesh the flash branch of :func:`attention_core` (and the
+dense one where the model axis splits the weights) expands k/v, pins
+q/k/v heads over the model axis and runs on each rank's blocks
+(``dist.collectives.local_map``), the flash branch through
+:class:`_FlashAttention`.  The port's own pins (``tp_residual``,
+``tp_replicate``; the projections' ``_dense_mm``) keep every product on
+each rank's share, as XLA splits it, and every view one that torch
+2.11's DTensor takes.
 """
 
 from __future__ import annotations
@@ -446,6 +450,29 @@ def shard_residual(x: torch.Tensor) -> torch.Tensor:
     return _pin(x, _residual_spec(x.shape), "residual")
 
 
+def _tp() -> bool:
+    """True under a pinned mesh whose model axis splits the weights (it
+    has more than one rank and carries no batch)."""
+    return (_ATTN_MESH["mesh"] is not None and _model_free()
+            and _mesh_size("model") > 1)
+
+
+def tp_residual(x: torch.Tensor) -> torch.Tensor:
+    """:func:`shard_residual` where the model axis splits the weights
+    (:func:`_tp`), else ``x`` itself.  Pinned at each sub-block, the
+    residual gives every projection its rows as XLA does, and no model
+    rank repeats a product that the others split.  Under pure data
+    parallelism the pin would make a residual whose batch the data axes
+    do not divide whole on every rank: there it is left to DTensor."""
+    return shard_residual(x) if _tp() else x
+
+
+def tp_replicate(x: torch.Tensor) -> torch.Tensor:
+    """:func:`replicate_model` where the model axis splits the weights
+    (:func:`_tp`), else ``x`` itself (see :func:`tp_residual`)."""
+    return replicate_model(x) if _tp() else x
+
+
 def _block_offset(mesh, entry, local_len: int) -> int:
     """Where this rank's block of a dim placed by spec ``entry`` starts:
     its coordinate over the entry's axes (major first) times the block's
@@ -509,25 +536,27 @@ def write_rows(cache: torch.Tensor, new: torch.Tensor,
     C.local_map(local, mesh, tuple(specs), spec)(*args)
 
 
-def _pinned_flash(q, k, v, window, causal, scale, q_chunk, k_chunk):
-    """The flash branch under a pinned mesh: q and the GQA-expanded k/v
-    pinned heads-over-model (batch-only where the heads do not divide),
-    :class:`_FlashAttention` run on each rank's blocks, whose heads and
-    batch rows are independent."""
+def _on_head_blocks(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's blocks under the pinned mesh: q and
+    the GQA-expanded k/v pinned heads over model (batch-only where the
+    heads do not divide), whose heads and batch rows are independent."""
     from repro_torch.dist.collectives import local_map
     n_rep = q.shape[2] // k.shape[2]
     q = _shard_heads(q)
     k = _shard_heads(_repeat_kv(k, n_rep))
     v = _shard_heads(_repeat_kv(v, n_rep))
     spec = _heads_spec(q.shape)
+    return local_map(fn, _ATTN_MESH["mesh"], (spec, spec, spec),
+                     spec)(q, k, v)
 
-    def local(ql, kl, vl):
-        return flash_attention(ql, kl, vl, window, causal, scale, q_chunk,
-                               k_chunk)
 
-    out = local_map(local, _ATTN_MESH["mesh"], (spec, spec, spec),
-                    spec)(q, k, v)
-    return _shard_heads(out)
+def _pinned_flash(q, k, v, window, causal, scale, q_chunk, k_chunk):
+    """The flash branch under a pinned mesh: :class:`_FlashAttention` on
+    each rank's head blocks (:func:`_on_head_blocks`)."""
+    return _on_head_blocks(
+        lambda ql, kl, vl: flash_attention(ql, kl, vl, window, causal,
+                                           scale, q_chunk, k_chunk),
+        q, k, v)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -546,10 +575,24 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  k_chunk)
         return flash_attention(q, k, v, window, causal, scale, q_chunk,
                                k_chunk)
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     mask = make_mask(sq, sk, causal=causal, window=window,
                      offset=sk - sq if causal else 0, device=q.device)
+    if _tp():
+        return _pinned_dense(q, k, v, mask, scale)
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     return attention_scores(q, k, v, mask=mask, scale=scale)
+
+
+def _pinned_dense(q, k, v, mask, scale):
+    """The dense branch under a pinned mesh whose model axis splits the
+    weights (:func:`_tp`): the scores on each rank's head blocks
+    (:func:`_on_head_blocks`).  DTensor's own einsum flattens the batch
+    and head dims into one, which torch 2.11 refuses while both are
+    split; under pure data parallelism the heads are whole and the
+    einsum is taken."""
+    return _on_head_blocks(
+        lambda ql, kl, vl: attention_scores(ql, kl, vl, mask=mask,
+                                            scale=scale), q, k, v)
 
 
 def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
@@ -582,8 +625,28 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def _dense_mm(x: torch.Tensor, w: torch.Tensor, name: str = ""
               ) -> torch.Tensor:
-    """Default projection matmul (the single-device path)."""
-    return x @ w
+    """Default projection matmul (the single-device path).  A placed
+    ``x`` is first made flattenable (``collectives.flattenable``): the
+    product views its leading dims as one.  Where the model axis splits
+    the weights (:func:`_tp`), the backward views the output's gradient
+    so too, and the gradient of ``x`` is placed as ``x`` is before it
+    leaves (``collectives.grad_placed_as``): the gradients of an input
+    read by several products (q, k and v of one normed residual) then sum
+    block by block, where torch 2.11's DTensor would turn one of two
+    differently split sums into a pending sum, which it cannot do.  A
+    weight split by rows over model then takes ``x`` split by columns
+    as it is (``collectives.split_as``): a replicated ``x`` (the
+    attention's heads, whole over model, into ``wo``) would otherwise be
+    saved whole, and the weight's gradient computed whole on every model
+    rank.  Under pure data parallelism the pins would gather gradients
+    that DTensor keeps split, and no view there needs them."""
+    from repro_torch.dist import collectives as C
+    x = C.flattenable(x, tag="flatten")
+    if not _tp():
+        return x @ w
+    x = C.grad_placed_as(x, tag="flatten")
+    x = C.split_as(x, -1, w, 0, tag="row_parallel")
+    return C.grad_flattenable(x @ w, tag="flatten")
 
 
 def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
@@ -654,10 +717,15 @@ def init_embeddings(generator, vocab: int, d_model: int,
 
 def embed(emb: Dict, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of ``emb["tok"]`` at ``tokens``; placed tokens look up
-    each rank's block of the table (:func:`_placed_embed`)."""
+    each rank's block of the table (:func:`_placed_embed`), the result
+    pinned as the residual (:func:`tp_residual`): a table whose
+    ``d_model`` the FSDP rules split over data would otherwise leave the
+    first layer's norm with ``d_model`` split over data and the batch
+    whole, and its backward sums that torch 2.11's DTensor cannot
+    place."""
     from repro_torch.dist.collectives import is_placed
     if is_placed(tokens):
-        return _placed_embed(emb["tok"], tokens)
+        return tp_residual(_placed_embed(emb["tok"], tokens))
     return emb["tok"][tokens.long()]
 
 
@@ -705,7 +773,7 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
     vocab = torch.arange(lm_head.shape[1], device=h.device)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
-        logits = (h[:, c0:c0 + chunk] @ lm_head).float()     # [B,c,V]
+        logits = _dense_mm(h[:, c0:c0 + chunk], lm_head).float()  # [B,c,V]
         lse = torch.logsumexp(logits, dim=-1)
         sel = vocab == labels[:, c0:c0 + chunk, None]
         tgt = torch.where(sel, logits, 0.0).sum(dim=-1)

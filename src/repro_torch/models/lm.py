@@ -124,7 +124,7 @@ def _block_apply(blk: Dict, h: torch.Tensor, *, cfg: ModelConfig,
                     head_dim=cfg.head_dim, positions=positions,
                     theta=cfg.rope_theta, causal=True, window=window,
                     mrope_sections=_mrope(cfg), mm=mm)
-    h = h + a
+    h = L.tp_residual(h + a)
     m, aux = _ffn(blk, h, cfg=cfg, mm=mm, dist_mesh=dist_mesh,
                   dist_schedule=dist_schedule)
     return h + m, aux
@@ -324,8 +324,9 @@ def _prefill_block(blk: Dict, hh: torch.Tensor, ck, cv, *,
                    cfg: ModelConfig, positions: torch.Tensor, window: int,
                    mm=None, dist_mesh=None,
                    dist_schedule: str = "allgather") -> torch.Tensor:
-    hh = hh + _prefill_attention(blk, hh, ck, cv, cfg=cfg,
-                                 positions=positions, window=window, mm=mm)
+    hh = L.tp_residual(hh + _prefill_attention(
+        blk, hh, ck, cv, cfg=cfg, positions=positions, window=window,
+        mm=mm))
     m, _ = _ffn(blk, hh, cfg=cfg, mm=mm, dist_mesh=dist_mesh,
                 dist_schedule=dist_schedule)
     return hh + m

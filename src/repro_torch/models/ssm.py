@@ -26,11 +26,12 @@ runs the chunked form on fresh states.
 Under the GSPMD pins (``layers.set_attention_mesh``, set by
 ``train.step.place_gspmd``) both recurrences run on each rank's blocks
 through ``dist.collectives.local_map``, as the pinned flash branch does:
-their inputs pinned batch over the data axes and replicated over model,
-the ``Function`` or the no-grad loop on plain blocks, the outputs placed
-the same way (:func:`_pinned_recurrence`).  The reference leaves this to
-XLA's propagation through its two custom VJPs; the pins are the port's
-own, and they change no value.
+their inputs pinned batch over the data axes and replicated over model
+(the chunked recurrence's heads over model where it divides them, as XLA
+splits them), the ``Function`` or the no-grad loop on plain blocks, the
+outputs placed the same way (:func:`_pinned_recurrence`).  The reference
+leaves this to XLA's propagation through its two custom VJPs; the pins
+are the port's own, and they change no value.
 """
 
 from __future__ import annotations
@@ -45,28 +46,40 @@ from repro_torch.models.layers import _init
 
 # ------------------------------------------------------ under a pinned mesh --
 
-def _pinned_recurrence(local, ins, out_shapes, weights: int = 0):
+def _pinned_recurrence(local, ins, out_shapes, weights: int = 0,
+                       heads=None):
     """``local(*ins)`` on each rank's blocks under the pinned mesh, as
     the pinned flash branch runs (``layers._pinned_flash``): each input
     pinned batch over the data axes and replicated over model
     (``layers.replicate_model``'s spec), its outputs (of the global
     ``out_shapes``) placed the same way.  Sound because the batch rows
-    of both recurrences are independent.  ``ins[1:1 + weights]`` are
-    weights shared by every row (the sLSTM's ``r`` and ``bias``):
-    pinned whole on every rank, and their gradient a pending sum over
-    the axes that split the batch."""
+    of both recurrences are independent.  ``heads`` names the dim that
+    holds the heads, in each input and then in each output: where the
+    model axis divides them (and carries no batch), that dim goes over
+    model too, as XLA splits the chunked recurrence's heads; its heads
+    are independent as well.  ``ins[1:1 + weights]`` are weights shared
+    by every row (the sLSTM's ``r`` and ``bias``): pinned whole on every
+    rank, and their gradient a pending sum over the axes that split the
+    batch."""
     from repro_torch.dist.collectives import local_map
     shared = range(1, 1 + weights)
-    specs = [(None,) * t.dim() if i in shared
-             else layers._replicate_spec(t.shape) for i, t in enumerate(ins)]
-    pinned = [layers._pin(t, spec, "replicate_model")
-              for t, spec in zip(ins, specs)]
+    shapes = [tuple(t.shape) for t in ins] + [tuple(s) for s in out_shapes]
+    specs = [(None,) * len(shape) if i in shared
+             else layers._replicate_spec(shape)
+             for i, shape in enumerate(shapes)]
+    m, tag = layers._mesh_size("model"), "replicate_model"
+    if heads is not None and m > 1 and layers._model_free() and all(
+            shape[d] % m == 0 for shape, d in zip(shapes, heads)):
+        specs = [spec[:d] + ("model",) + spec[d + 1:]
+                 for spec, d in zip(specs, heads)]
+        tag = "recurrence_heads"
+    in_specs, out_specs = specs[:len(ins)], specs[len(ins):]
+    pinned = [layers._pin(t, spec, tag) for t, spec in zip(ins, in_specs)]
     bspec = layers._b_spec(ins[0].shape[0])
     axes = () if bspec is None else (
         (bspec,) if isinstance(bspec, str) else tuple(bspec))
     grad_axes = [axes if i in shared else () for i in range(len(ins))]
-    return local_map(local, layers._ATTN_MESH["mesh"], specs,
-                     [layers._replicate_spec(s) for s in out_shapes],
+    return local_map(local, layers._ATTN_MESH["mesh"], in_specs, out_specs,
                      grad_sum_axes=grad_axes)(*pinned)
 
 
@@ -178,15 +191,19 @@ def chunked_linear_recurrence(q: torch.Tensor, k: torch.Tensor,
     lf, li = lf.float(), li.float()
 
     def local(ql, kl, vl, lfl, lil, s0=None):
-        S = (torch.zeros((ql.shape[0], h, n, p), dtype=torch.float32,
-                         device=ql.device)
+        # this rank's rows and heads
+        S = (torch.zeros(ql.shape[:1] + ql.shape[2:3] + (n, p),
+                         dtype=torch.float32, device=ql.device)
              if s0 is None else s0.float())
         y, S = _clr(ql, kl, vl, lfl, lil, S, chunk)
         return y.to(vl.dtype), S
 
     ins = (q, k, v, lf, li) + (() if state0 is None else (state0,))
     if layers._ATTN_MESH["mesh"] is not None:
-        return _pinned_recurrence(local, ins, [(b, s, h, p), (b, h, n, p)])
+        # the heads: dim 2 of q, k, v, lf, li and y, dim 1 of the states
+        return _pinned_recurrence(local, ins, [(b, s, h, p), (b, h, n, p)],
+                                  heads=(2,) * 5 + (1,) * (len(ins) - 5)
+                                  + (2, 1))
     return local(*ins)
 
 
@@ -301,6 +318,16 @@ def init_mamba2(generator, d_model: int, *, expand: int, state: int,
     }
 
 
+def _state_cols(w: torch.Tensor) -> torch.Tensor:
+    """``w_B`` / ``w_C`` [d, N] under a pinned mesh whose model axis
+    splits the weights: its N columns over model where it divides them,
+    so the projection's output comes split and no model rank repeats
+    it."""
+    if w.shape[1] % layers._mesh_size("model") == 0:
+        return layers._pin(w, (None, "model"), "state_cols")
+    return w
+
+
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                    state: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -327,11 +354,19 @@ def mamba2_block(params: Dict, x: torch.Tensor, *, expand: int, state: int,
     b, s, d = x.shape
     di = expand * d
     nh = di // head_dim
-    z = x @ params["w_z"]
-    xb = x @ params["w_x"]
-    B = x @ params["w_B"]
-    C = x @ params["w_C"]
-    dt = x @ params["w_dt"]
+    w_B, w_C = params["w_B"], params["w_C"]
+    if layers._tp():
+        # the in-projections split as XLA splits them: the tokens whole
+        # over model, each weight's output over model (``w_B`` / ``w_C``,
+        # replicated by the specs, cut to their blocks: no wire)
+        x = layers.replicate_model(x)
+        w_B, w_C = _state_cols(w_B), _state_cols(w_C)
+    mm = layers._dense_mm
+    z = mm(x, params["w_z"])
+    xb = mm(x, params["w_x"])
+    B = mm(x, w_B)
+    C = mm(x, w_C)
+    dt = mm(x, params["w_dt"])
 
     st = ssm_state or {}
     xb, ncx = _causal_conv1d(xb, params["conv_x"], st.get("conv_x"))
@@ -345,6 +380,8 @@ def mamba2_block(params: Dict, x: torch.Tensor, *, expand: int, state: int,
 
     v = layers.split_heads(xb, nh, head_dim)
     # B and C are shared by every head: broadcast views, never copies
+    # (whole over model first: the recurrence splits the heads)
+    B, C = layers.tp_replicate(B), layers.tp_replicate(C)
     qh = C[:, :, None, :].expand(b, s, nh, state)
     kh = B[:, :, None, :].expand(b, s, nh, state)
 
@@ -357,7 +394,7 @@ def mamba2_block(params: Dict, x: torch.Tensor, *, expand: int, state: int,
                                          state0=st.get("ssd"))
     y = (y + v * params["D"][None, None, :, None]).to(x.dtype)
     y = layers.merge_heads(y)
-    out = _gated_rmsnorm(y, z, params["norm_w"]) @ params["out_proj"]
+    out = mm(_gated_rmsnorm(y, z, params["norm_w"]), params["out_proj"])
     new_state = ({"conv_x": ncx, "conv_B": ncb, "conv_C": ncc, "ssd": S}
                  if (decode or ssm_state is not None) else None)
     return out, new_state
@@ -389,12 +426,13 @@ def mlstm_block(params: Dict, x: torch.Tensor, *, expand: int, n_heads: int,
     decode mode)."""
     di = expand * x.shape[-1]
     hd = di // n_heads
-    xi = x @ params["w_x"]
-    z = x @ params["w_z"]
-    q = layers.split_heads(xi @ params["wq"], n_heads, hd)
-    k = layers.split_heads(xi @ params["wk"], n_heads, hd) * hd ** -0.5
-    v = layers.split_heads(xi @ params["wv"], n_heads, hd)
-    gates = xi.float() @ params["gates"]                           # [B,S,2H]
+    mm = layers._dense_mm
+    xi = mm(x, params["w_x"])
+    z = mm(x, params["w_z"])
+    q = layers.split_heads(mm(xi, params["wq"]), n_heads, hd)
+    k = layers.split_heads(mm(xi, params["wk"]), n_heads, hd) * hd ** -0.5
+    v = layers.split_heads(mm(xi, params["wv"]), n_heads, hd)
+    gates = mm(xi.float(), params["gates"])                        # [B,S,2H]
     lf = _log_sigmoid(gates[..., :n_heads])                        # forget
     li = _log_sigmoid(gates[..., n_heads:])                        # input
 
@@ -412,7 +450,7 @@ def mlstm_block(params: Dict, x: torch.Tensor, *, expand: int, n_heads: int,
     y, nrm = y_ext[..., :hd], y_ext[..., hd:]
     y = y / torch.clamp(torch.abs(nrm), min=1.0)
     y = layers.merge_heads(y)
-    out = _gated_rmsnorm(y, z, params["norm_w"]) @ params["out_proj"]
+    out = mm(_gated_rmsnorm(y, z, params["norm_w"]), params["out_proj"])
     new_state = ({"ssd": S} if (decode or ssm_state is not None) else None)
     return out, new_state
 
@@ -539,7 +577,9 @@ def slstm_block(params: Dict, x: torch.Tensor, *, n_heads: int,
     tensors)."""
     b, _, d = x.shape
     hd = d // n_heads
-    pre = layers.split_heads((x @ params["w_in"]).float(), n_heads, 4 * hd)
+    mm = layers._dense_mm
+    pre = layers.split_heads(mm(x, params["w_in"]).float(), n_heads,
+                             4 * hd)
     r = params["r"].float()
     bias = params["bias"].reshape(n_heads, 4 * hd)
 
@@ -558,7 +598,7 @@ def slstm_block(params: Dict, x: torch.Tensor, *, n_heads: int,
     else:
         ys, carry = _slstm_scan(pre, r, bias, carry)
     y = layers.merge_heads(ys).to(x.dtype)
-    out = y @ params["out_proj"]
+    out = mm(y, params["out_proj"])
     c, n, h = carry
     new_state = ({"c": c, "n": n, "h": h}
                  if (decode or ssm_state is not None) else None)
