@@ -288,9 +288,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``DRYRUN_VIEW_CELLS``: gemma3-4b ``train_4k``, a projection
    flattening a sequence split over model; granite-moe ``decode_32k``,
    the MoE combine; gemma3-12b ``train_4k``, two gradients split on
-   swapped mesh dims), on the card's own torch, gated
-   ``status == "ok"`` and its argument bytes equal to the CPU dry run's
-   on torch 2.13.
+   swapped mesh dims), and qwen3-moe-235b-a22b ``train_4k`` on 2x16x16,
+   whose MoE combine torch 2.11's DTensor ran 16-fold before every
+   product ran on each rank's blocks, on the card's own torch, each
+   under ``launch.op_analysis.DotCheck`` (``run_cell``), gated
+   ``status == "ok"``, its argument bytes and its per-device dot FLOPs
+   equal to the CPU dry run's on torch 2.13, and no product left to
+   DTensor's propagation.
 
 The last lines are the card line, one JSON line of per-kernel results
 and ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -400,17 +404,22 @@ DRYRUN_SLOTS, DRYRUN_PROMPT, DRYRUN_STEPS = 8, 64, 8
 DRYRUN_PEAK_BAND = (0.95, 1.05)
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"))
 #: phase 13 (d): the cheapest 16x16 cell of each class of placement that
-#: torch 2.11's DTensor refused before the models pinned around it, with
-#: its per-device argument bytes as the CPU dry run on torch 2.13 records
-#: them (``python -m repro_torch.launch.dryrun --device cpu``)
+#: torch 2.11's DTensor refused before the models pinned around it, and
+#: the cell whose MoE combine torch 2.11 repeated 16-fold before every
+#: product ran on each rank's blocks: (arch, shape, on the 2x16x16 mesh,
+#: per-device argument bytes, per-device dot FLOPs) as the CPU dry run
+#: on torch 2.13 records them (``python -m repro_torch.launch.dryrun
+#: --device cpu``)
 DRYRUN_VIEW_CELLS = (
     # a projection's view of [B, S, d] with S split over model
-    ("gemma3-4b", "train_4k", 2930111488),
+    ("gemma3-4b", "train_4k", False, 2930111488, 539276093685760.0),
     # the MoE combine's flattened (C, E) with E split over model
-    ("granite-moe-1b-a400m", "decode_32k", 981568292),
+    ("granite-moe-1b-a400m", "decode_32k", False, 981568292, 8323599360.0),
     # a backward sum of two gradients split on swapped mesh dims (an
     # FSDP-split embedding table, a normed input read by three products)
-    ("gemma3-12b", "train_4k", 497612288),
+    ("gemma3-12b", "train_4k", False, 497612288, 405101315358720.0),
+    # the MoE's products left to DTensor: 16x the combine on torch 2.11
+    ("qwen3-moe-235b-a22b", "train_4k", True, 9649881088, 509076031143936.0),
 )
 
 
@@ -3754,12 +3763,14 @@ def dryrun_phase(card, device="cuda"):
                                   f"{arch} {shape} {rec['mesh']}",
                                   **cells[-1]}), flush=True)
             # (d): a cell of each class torch 2.11 refused
-            for arch, shape, arg_bytes in DRYRUN_VIEW_CELLS:
+            for arch, shape, multi_pod, arg_bytes, dots in \
+                    DRYRUN_VIEW_CELLS:
                 t0 = time.perf_counter()
-                rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
                                       out_dir=out_dir, device=device)
                 views.append(dict(rec, seconds=time.perf_counter() - t0,
-                                  cpu_argument_bytes=arg_bytes))
+                                  cpu_argument_bytes=arg_bytes,
+                                  cpu_dot_flops=dots))
                 print(json.dumps({"phase": "dryrun", "card": card, "cell":
                                   f"{arch} {shape} {rec['mesh']}",
                                   "refused_on_2_11": True, **views[-1]}),
@@ -3791,10 +3802,17 @@ def dryrun_phase(card, device="cuda"):
         check(rec["status"] == "ok", f"dry run cell {rec['arch']} "
               f"{rec['shape']}: {rec.get('error', rec['status'])}")
     for rec in views:
+        cell = f"dry run cell {rec['arch']} {rec['shape']} {rec['mesh']}"
         got = rec["memory_analysis"]["argument_size_in_bytes"]
         check(got == rec["cpu_argument_bytes"],
-              f"dry run cell {rec['arch']} {rec['shape']}: argument bytes "
-              f"{got} != the CPU dry run's {rec['cpu_argument_bytes']}")
+              f"{cell}: argument bytes {got} != the CPU dry run's "
+              f"{rec['cpu_argument_bytes']}")
+        check(rec["dot_flops_per_device"] == rec["cpu_dot_flops"],
+              f"{cell}: dot FLOPs {rec['dot_flops_per_device']} != the "
+              f"CPU dry run's {rec['cpu_dot_flops']}")
+        check(rec["dots_left_to_dtensor"] == 0,
+              f"{cell}: {rec['dots_left_to_dtensor']} products left to "
+              f"DTensor's propagation, first {rec['dots_left_first']}")
     return r["launches"]
 
 

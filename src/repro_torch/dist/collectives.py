@@ -57,7 +57,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-import types
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -725,13 +724,15 @@ def is_placed(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def spec_of(t) -> tuple:
+def spec_of(t, *, pending_as_replica: bool = False) -> tuple:
     """The spec of a DTensor's placements (the inverse of
-    :func:`placements`); a pending sum (``Partial``) has none."""
+    :func:`placements`); a pending sum (``Partial``) has none, unless
+    ``pending_as_replica`` reads it as a replica (the spec of the blocks'
+    layout)."""
     names = _mesh_dim_names(t.device_mesh)
     entries = [[] for _ in range(t.dim())]
     for i, p in enumerate(t.placements):
-        if p.is_partial():
+        if p.is_partial() and not pending_as_replica:
             raise ValueError(f"{t.placements} holds a pending sum")
         if p.is_shard():
             entries[p.dim].append(names[i])
@@ -850,28 +851,6 @@ def whole_along(x, dim: int, *, tag: str, axes=None):
     return x.redistribute(x.device_mesh, dst)
 
 
-def split_as(x, dim: int, ref, ref_dim: int, *, tag: str):
-    """``x`` with ``dim`` split over the model axis where that axis splits
-    ``ref``'s ``ref_dim`` and ``x`` is a replica over it: a slice of each
-    rank's block, no collective (its backward gathers the gradient); noted
-    under ``gspmd_<tag>``.  Anything else as it is.  The input of a
-    product whose weight the model axis splits by rows then keeps only its
-    own columns, and the weight's gradient is a product of those columns,
-    not the whole gradient computed on every model rank and cut."""
-    if not (is_placed(x) and is_placed(ref)):
-        return x
-    from torch.distributed.tensor import Shard
-    dim, ref_dim = dim % x.dim(), ref_dim % ref.dim()
-    names = _mesh_dim_names(x.device_mesh)
-    dst = [Shard(dim) if names[i] == "model" and p.is_replicate()
-           and q.is_shard(ref_dim) else p
-           for i, (p, q) in enumerate(zip(x.placements, ref.placements))]
-    if tuple(dst) == tuple(x.placements):
-        return x
-    _note_redistribute(x, dst, "gspmd_" + tag)
-    return x.redistribute(x.device_mesh, dst)
-
-
 def flattenable(x, *, tag: str):
     """``x`` ready for a view that flattens all its dims but the last into
     one, as a matmul of ``x`` does: every such dim of more than one
@@ -930,13 +909,6 @@ def _grad_map(x, fn):
     return _GradMap.apply(x, fn)
 
 
-def grad_contiguous(x):
-    """``x`` itself, the blocks of its gradient laid out as its global
-    strides say before it flows back past this point
-    (:func:`contiguous_blocks`)."""
-    return _grad_map(x, contiguous_blocks)
-
-
 def grad_flattenable(x, *, tag: str):
     """``x`` itself, its gradient made :func:`flattenable` before it flows
     back past this point: the backward of a product views the gradient
@@ -945,19 +917,6 @@ def grad_flattenable(x, *, tag: str):
         return x
     return _grad_map(
         x, lambda g: contiguous_blocks(flattenable(g, tag=tag)))
-
-
-def grad_placed_as(x, *, tag: str):
-    """``x`` itself, its gradient placed as ``x`` is (a pending sum of
-    ``x``'s as a replica; the gradient's own pending sums summed, noted
-    under ``gspmd_<tag>``) before it flows back past this point: a
-    view's backward then views it as the forward viewed ``x``."""
-    if not is_placed(x):
-        return x
-    # the placements alone: the block itself is not kept
-    ref = types.SimpleNamespace(placements=x.placements,
-                                device_mesh=x.device_mesh)
-    return _grad_map(x, functools.partial(constrain_like, ref=ref, tag=tag))
 
 
 def grad_whole_along(x, dim: int, *, tag: str):

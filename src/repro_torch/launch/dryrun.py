@@ -43,6 +43,7 @@ HBM_BW = 3.35e12          # B/s per card, H100 SXM HBM3
 LINK_BW = 50e9
 HBM_BYTES = 80e9          # the H100 80GB's memory: param_specs' budget
 OUT_DIR = "dryrun_out"
+DOTS_LEFT_SHOWN = 4   # records of dots left to DTensor kept per cell
 
 
 def budget() -> Dict[str, float]:
@@ -212,6 +213,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "tp_decisions": built.decisions,
         "hbm_budget_bytes": memory["hbm_bytes"],
         **({"dot_flops_by_site": stats["dot_sites"]} if sites else {}),
+        # products whose split DTensor's propagation chose (none: every
+        # product runs on each rank's blocks), the first few named
+        "dots_left_to_dtensor": len(stats["dots_left"]),
+        "dots_left_first": stats["dots_left"][:DOTS_LEFT_SHOWN],
     })
     return _write(rec, out_dir)
 

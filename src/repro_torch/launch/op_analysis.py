@@ -10,6 +10,9 @@ ops DTensor's sharding propagation runs on fake tensors.  A replicated op
 costs every device its whole count.  The dry run's blocks live on the
 ``meta`` device, so nothing is computed and nothing is allocated: the
 counts are those of the real step on a device of the mesh.
+:class:`DotCheck` (inside the counter in :func:`analyze`) records any
+product that reaches DTensor's sharding propagation: the port runs every
+product on each rank's blocks, so the split it counts is the port's own.
 
 Accounting model (per device, the reference's where it can be):
   flops   -- dot (``mm``, ``bmm``, ``addmm``, ``baddbmm``):
@@ -452,13 +455,48 @@ class ViewCheck(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
+class DotCheck(TorchDispatchMode):
+    """Records every dot (``mm``, ``bmm``, ``addmm``, ``baddbmm``; an
+    ``einsum`` or ``matmul`` of DTensors arrives as one) that reaches it
+    with a DTensor operand: a product whose split DTensor's sharding
+    propagation chooses, a choice that differs between torch versions
+    and shapes.  A product run on each rank's blocks
+    (``collectives.local_map``) reaches it with plain blocks and is not
+    recorded.  Each record (``left``: one dict each) holds the op, its
+    operands' global shapes and placements and where it ran in the port.
+    It changes nothing: every op runs as it would without it."""
+
+    def __init__(self):
+        super().__init__()
+        self.left: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if func.namespace == "aten" and func.__name__.split(".")[0] in _DOTS:
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            if any(isinstance(t, DTensor) for t in ts):
+                self.left.append({
+                    "op": str(func),
+                    "shape": tuple(tuple(t.shape) for t in ts),
+                    "placements": str([getattr(t, "placements", None)
+                                       for t in ts]),
+                    "at": _port_frames()})
+        return func(*args, **kwargs)
+
+
 def _port_frames(n: int = 3) -> list:
     """The innermost ``n`` frames of the port's models on the stack
-    (``file:line function``)."""
+    (``file:line function``) above any ``local_map``: a function run on
+    each rank's blocks is named by where the port called it."""
     import os
     import traceback
-    frames = [f for f in traceback.extract_stack()
-              if f"repro_torch{os.sep}models" in f.filename]
+    frames = []
+    for f in traceback.extract_stack():
+        if f"experimental{os.sep}_func_map" in f.filename:
+            break
+        if f"repro_torch{os.sep}models" in f.filename:
+            frames.append(f)
     node = torch._C._current_autograd_node()
     return ([f"backward: {node.name()}"] if node is not None else []) + [
         f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
@@ -487,12 +525,15 @@ def analyze(step, args: Any, *, hold: Any = None,
     the step's output.  ``hold`` (default ``args``) is the state the step
     starts from: its argument bytes are its blocks' bytes on this
     device.  ``sites`` adds ``dot_sites``, the dot FLOPs by where the
-    port ran each dot (:attr:`OpCounter.dot_sites`)."""
+    port ran each dot (:attr:`OpCounter.dot_sites`).  The step also runs
+    under a :class:`DotCheck`: ``dots_left`` holds its records."""
     from repro_torch.dist.collectives import local_part
     held = [local_part(t) for t in _tensors(args if hold is None else hold)]
     counter = OpCounter(sites=sites)
     counter.hold(held)
-    with counter:
+    check = DotCheck()
+    # the check inside the counter: it sees each op before DTensor does
+    with counter, check:
         out = step(*args)
     outs = [local_part(t) for t in _tensors(out)]
     coll = parse_collectives(counter.collectives)
@@ -509,5 +550,6 @@ def analyze(step, args: Any, *, hold: Any = None,
         "output_size_in_bytes": counter.held_bytes(outs),
         "temp_size_in_bytes": counter.temp_peak_bytes,
         **({"dot_sites": counter.dot_sites} if sites else {}),
+        "dots_left": check.left,
         "out": out,
     }

@@ -218,12 +218,10 @@ def decode_step_encdec(params: Dict, cfg: ModelConfig, cache: Dict,
         # cross attention against the cached encoder K/V
         xq = L.split_heads(mm(L.rmsnorm(h, blk["ln2"], cfg.norm_eps),
                               blk["xattn"]["wq"]), nh, hd)
-        # the query whole over model, as the self attention's
-        # (``lm._cached_attention``): the scores split along the keys
-        xq = pin(xq)
-        xo = L.attention_scores(xq, L._repeat_kv(cache["xk"][i], nh // g),
-                                L._repeat_kv(cache["xv"][i], nh // g),
-                                mask=None, scale=hd ** -0.5)
+        # as the self attention's (``lm._cached_attention``): the
+        # scores split along the keys
+        xo = L.cache_attention(xq, cache["xk"][i], cache["xv"][i],
+                               mask=None, scale=hd ** -0.5)
         h = pin(h + mm(xo.reshape(b, 1, nh * hd), blk["xattn"]["wo"]))
         h = pin(h + _mlp(blk, h, cfg))
     return lm._head(params, cfg, h, None), dict(cache, len=pos + 1)

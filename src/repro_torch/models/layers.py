@@ -22,14 +22,15 @@ The GSPMD pins (``set_attention_mesh``, ``_shard_heads``,
 constraints of its ``gspmd`` mode: once ``train.step.place_gspmd`` has set
 a mesh, each redistributes a DTensor to its spec
 (``dist.collectives.constrain``); without a mesh each is the identity.
-Under a pinned mesh the flash branch of :func:`attention_core` (and the
-dense one where the model axis splits the weights) expands k/v, pins
-q/k/v heads over the model axis and runs on each rank's blocks
-(``dist.collectives.local_map``), the flash branch through
-:class:`_FlashAttention`.  The port's own pins (``tp_residual``,
-``tp_replicate``; the projections' ``_dense_mm``) keep every product on
-each rank's share, as XLA splits it, and every view one that torch
-2.11's DTensor takes.
+Under a pinned mesh both branches of :func:`attention_core` expand k/v,
+pin q/k/v heads over the model axis (where it splits the weights) and
+run on each rank's blocks (``dist.collectives.local_map``), the flash
+branch through :class:`_FlashAttention`; so do the projections
+(:func:`_dense_mm`) and a decode step's scores against the cache
+(:func:`cache_attention`): DTensor's sharding propagation splits no
+product.  The port's own pins (``tp_residual``, ``tp_replicate``) keep
+every product on each rank's share, as XLA splits it, and every view one
+that torch 2.11's DTensor takes.
 """
 
 from __future__ import annotations
@@ -396,6 +397,21 @@ def _b_spec(batch: int):
     return None
 
 
+def _batch_blocks(batch: int, skip=()) -> Optional[object]:
+    """The spec entry of a product's batch rows on each rank: the data
+    axes (not in ``skip``) in order, each that divides what the ones
+    before it leave (``parallel.sharding.batch_specs``'s rule).  The
+    reference's pins (:func:`_b_spec`) hold a batch whole unless every
+    data axis divides it; XLA still splits the products between two pins
+    so, and gathers the batch at the pin."""
+    use, rem = [], batch
+    for a in _ATTN_MESH["dp"]:
+        if a not in skip and rem % _mesh_size(a) == 0:
+            use.append(a)
+            rem //= _mesh_size(a)
+    return None if not use else use[0] if len(use) == 1 else tuple(use)
+
+
 def _heads_spec(shape, batch_sharded: bool = True) -> tuple:
     """The pin of [B, S, H, D]: (dp, None, model, None) where divisible."""
     m = _mesh_size("model")
@@ -540,14 +556,18 @@ def _on_head_blocks(fn, q, k, v):
     """``fn(q, k, v)`` on each rank's blocks under the pinned mesh: q and
     the GQA-expanded k/v pinned heads over model (batch-only where the
     heads do not divide), whose heads and batch rows are independent."""
-    from repro_torch.dist.collectives import local_map
+    from repro_torch.dist.collectives import constrain, local_map
+    mesh = _ATTN_MESH["mesh"]
     n_rep = q.shape[2] // k.shape[2]
     q = _shard_heads(q)
     k = _shard_heads(_repeat_kv(k, n_rep))
     v = _shard_heads(_repeat_kv(v, n_rep))
     spec = _heads_spec(q.shape)
-    return local_map(fn, _ATTN_MESH["mesh"], (spec, spec, spec),
-                     spec)(q, k, v)
+    if spec[0] is None:     # a batch the pin holds whole: split it
+        spec = (_batch_blocks(q.shape[0], skip=(spec[2],)),) + spec[1:]
+        q, k, v = (constrain(t, mesh, spec, tag="batch_blocks")
+                   for t in (q, k, v))
+    return local_map(fn, mesh, (spec, spec, spec), spec)(q, k, v)
 
 
 def _pinned_flash(q, k, v, window, causal, scale, q_chunk, k_chunk):
@@ -577,22 +597,67 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                k_chunk)
     mask = make_mask(sq, sk, causal=causal, window=window,
                      offset=sk - sq if causal else 0, device=q.device)
-    if _tp():
+    if _ATTN_MESH["mesh"] is not None:
         return _pinned_dense(q, k, v, mask, scale)
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     return attention_scores(q, k, v, mask=mask, scale=scale)
 
 
 def _pinned_dense(q, k, v, mask, scale):
-    """The dense branch under a pinned mesh whose model axis splits the
-    weights (:func:`_tp`): the scores on each rank's head blocks
-    (:func:`_on_head_blocks`).  DTensor's own einsum flattens the batch
-    and head dims into one, which torch 2.11 refuses while both are
-    split; under pure data parallelism the heads are whole and the
-    einsum is taken."""
+    """The dense branch under a pinned mesh: the scores on each rank's
+    head blocks (:func:`_on_head_blocks`; under pure data parallelism the
+    heads are whole and the batch rows split), so DTensor's propagation
+    chooses no split of the two products.  DTensor's own einsum also
+    flattens the batch and head dims into one, which torch 2.11 refuses
+    while both are split."""
     return _on_head_blocks(
         lambda ql, kl, vl: attention_scores(ql, kl, vl, mask=mask,
                                             scale=scale), q, k, v)
+
+
+def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    mask: Optional[torch.Tensor], scale: float
+                    ) -> torch.Tensor:
+    """:func:`attention_scores` of decode queries q [B,1,H,D] against a
+    cache's K/V [B,Sk,G,D] (GQA-expanded here).  On a placed cache (the
+    serve specs split its batch over data and its keys over model) both
+    products run on each rank's blocks (``collectives.local_map``): q
+    whole over the axes that split the keys, the scores split along the
+    keys, the softmax on them as DTensor places it, the probabilities cut
+    back to the keys' blocks (a slice: no wire) and the values' product a
+    pending sum over the keys' axes, as flash decoding splits it."""
+    from repro_torch.dist import collectives as C
+    n_rep = q.shape[2] // k.shape[2]
+    if not C.is_placed(k):
+        return attention_scores(q, _repeat_kv(k, n_rep),
+                                _repeat_kv(v, n_rep), mask=mask,
+                                scale=scale)
+    mesh = k.device_mesh
+    b_spec, k_spec = C.spec_of(k)[:2]
+    kv_spec = (b_spec, k_spec, None, None)
+    q_spec = (b_spec, None, None, None)
+    p_spec = (b_spec, None, None, k_spec)
+    q = C.constrain(q, mesh, q_spec, tag="cache_query")
+    k = C.constrain(k, mesh, kv_spec, tag="cache_keys")
+    v = C.constrain(v, mesh, kv_spec, tag="cache_keys")
+    k_axes = C._spec_axes(k_spec)
+
+    def scores(ql, kl):
+        return torch.einsum("bqhd,bkhd->bhqk", ql.float(),
+                            _repeat_kv(kl, n_rep).float()) * scale
+
+    def values(pl, vl):
+        return torch.einsum("bhqk,bkhd->bqhd", pl,
+                            _repeat_kv(vl, n_rep))
+
+    logits = C.local_map(scores, mesh, (q_spec, kv_spec), p_spec,
+                         grad_sum_axes=[k_axes, ()])(q, k)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = C.constrain(torch.softmax(logits, dim=-1).to(v.dtype), mesh,
+                        p_spec, tag="cache_probs")
+    return C.local_map(values, mesh, (p_spec, kv_spec), q_spec,
+                       out_sum_axes=k_axes)(probs, v)
 
 
 def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
@@ -623,30 +688,69 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _entry(axes):
+    """The spec entry of a dim split over ``axes`` (in the mesh's order)."""
+    axes = tuple(axes)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
 def _dense_mm(x: torch.Tensor, w: torch.Tensor, name: str = ""
               ) -> torch.Tensor:
-    """Default projection matmul (the single-device path).  A placed
-    ``x`` is first made flattenable (``collectives.flattenable``): the
-    product views its leading dims as one.  Where the model axis splits
-    the weights (:func:`_tp`), the backward views the output's gradient
-    so too, and the gradient of ``x`` is placed as ``x`` is before it
-    leaves (``collectives.grad_placed_as``): the gradients of an input
-    read by several products (q, k and v of one normed residual) then sum
-    block by block, where torch 2.11's DTensor would turn one of two
-    differently split sums into a pending sum, which it cannot do.  A
-    weight split by rows over model then takes ``x`` split by columns
-    as it is (``collectives.split_as``): a replicated ``x`` (the
-    attention's heads, whole over model, into ``wo``) would otherwise be
-    saved whole, and the weight's gradient computed whole on every model
-    rank.  Under pure data parallelism the pins would gather gradients
-    that DTensor keeps split, and no view there needs them."""
+    """Default projection matmul (the single-device path).  On a placed
+    ``x`` and ``w`` the product runs on each rank's blocks
+    (``collectives.local_map``), in the form the weight's placement
+    gives, as XLA splits a projection:
+
+    * column-parallel (``w``'s columns over model): ``x``'s rows whole
+      over model (a sequence-split residual is gathered), its features
+      whole; the output's columns over model, ``x``'s gradient a pending
+      sum over model;
+    * row-parallel (``w``'s rows over model): ``x``'s features split over
+      model to match (a slice of each rank's block where ``x`` is whole
+      there, a reduce-scatter where it is a pending sum); the output a
+      pending sum over model, which the next residual pin settles (a
+      reduce-scatter into the sequence-split residual);
+    * data parallel (``w`` whole over model): ``x``'s rows as the
+      residual's pin splits them over model (its sequence), else its
+      features as a column-parallel producer split them (a slice of the
+      weight's rows, the output a pending sum).
+
+    The batch rows are split over every data axis that divides them
+    (:func:`_batch_blocks`); no other split of ``x``, DTensor's choice,
+    is read, so no torch version changes the product's split.  A weight
+    that FSDP splits over a data axis is gathered there when the rows
+    take that axis; else it keeps its split, and the product splits its
+    contraction (a pending sum) or its columns there, as XLA does for a
+    decode step's rows.  The weight's gradient is a pending sum over the
+    axes that split the rows.  No view of a placed tensor is taken, and
+    DTensor's propagation chooses no split of the product."""
     from repro_torch.dist import collectives as C
-    x = C.flattenable(x, tag="flatten")
-    if not _tp():
+    if not (C.is_placed(x) and C.is_placed(w)):
         return x @ w
-    x = C.grad_placed_as(x, tag="flatten")
-    x = C.split_as(x, -1, w, 0, tag="row_parallel")
-    return C.grad_flattenable(x @ w, tag="flatten")
+    mesh = w.device_mesh
+    w_in, w_out = (C._spec_axes(e) for e in C.spec_of(w))
+    tp = "model" in w_in + w_out
+    # x's split over a model axis that neither the batch nor the weight
+    # takes: the tensor-parallel residual's pin, or its producer's
+    free = ("model",) if "model" not in _ATTN_MESH["dp"] and not tp \
+        else ()
+    xspec = tuple(_entry(a for a in C._spec_axes(e) if a in free)
+                  for e in C.spec_of(x, pending_as_replica=True))
+    rows = (_batch_blocks(x.shape[0], skip=("model",) if tp else ()),
+            ) + xspec[1:-1]
+    taken = {a for e in rows for a in C._spec_axes(e)}
+    w_in = tuple(a for a in w_in if a not in taken)
+    w_out = tuple(a for a in w_out if a not in taken)
+    if not w_in:
+        w_in = tuple(a for a in C._spec_axes(xspec[-1]) if a not in taken)
+    wspec = (_entry(w_in), _entry(w_out))
+    w = C.constrain(w, mesh, wspec, tag="fsdp_gather")
+    xspec = rows + (wspec[0],)
+    x = C.constrain(x, mesh, xspec, tag="mm_in")
+    return C.local_map(torch.matmul, mesh, (xspec, wspec),
+                       rows + (wspec[1],),
+                       grad_sum_axes=[w_out, tuple(taken)],
+                       out_sum_axes=w_in)(x, w)
 
 
 def attention(params: Dict, x: torch.Tensor, *, n_heads: int,

@@ -235,19 +235,14 @@ def _cached_attention(blk: Dict, h: torch.Tensor, cache_k: torch.Tensor,
         k = L.apply_rope(k, posb, cfg.rope_theta)
     L.write_rows(cache_k, k, pos)
     L.write_rows(cache_v, v, pos)
-    # under a pinned mesh the query's heads are made whole over the model
-    # axis, which splits the cache's sequence: the scores then split
-    # along the keys, and no view flattens two split dims (torch 2.11
-    # refuses one)
-    q = L.replicate_model(q)
     kpos = torch.arange(cache_k.shape[1], device=h.device)
     valid = kpos[None, :] <= pos[:, None]
     if window > 0:
         valid &= kpos[None, :] > pos[:, None] - window
     mask = valid[:, None, None, :]
-    kk = L._repeat_kv(cache_k, nh // g)
-    vv = L._repeat_kv(cache_v, nh // g)
-    out = L.attention_scores(q, kk, vv, mask=mask, scale=hd ** -0.5)
+    # on a placed cache the scores split along its keys
+    out = L.cache_attention(q, cache_k, cache_v, mask=mask,
+                            scale=hd ** -0.5)
     return mm(out.reshape(b, 1, nh * hd), blk["attn"]["wo"], "wo")
 
 

@@ -10,12 +10,12 @@ capacity are dropped (their combine weight is 0), as in GShard.
 With ``dist_mesh`` (a ``(Pm, Pn, Pc)`` serving mesh) the expert
 contractions run through :func:`repro_torch.dist.lm.expert_ffn_distributed`
 -- experts over the contraction (c) ring, the expert ff dim over n, each
-per-expert product through ``kernels.ops.local_matmul``.  Otherwise the
-dispatch and combine tensors are pinned by :func:`_shard_dispatch`, the
-reference's GSPMD pin: under ``train.step.place_gspmd``'s mesh the expert
-dim goes over the model axis (where the expert weights' is, by
-``parallel.sharding``) and the groups over the data axes; without a mesh
-it is the identity.
+per-expert product through ``kernels.ops.local_matmul``.  Otherwise,
+under ``train.step.place_gspmd``'s mesh, the dispatch and combine tensors
+are pinned as the reference's GSPMD pin places them (the expert dim over
+the model axis, where the expert weights' is by ``parallel.sharding``,
+the groups over the data axes) and every product runs on each rank's
+blocks (:func:`_placed_experts`); without a mesh they run as they are.
 """
 
 from __future__ import annotations
@@ -93,13 +93,99 @@ def _router(xs: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
 
 def _shard_dispatch(x: torch.Tensor) -> torch.Tensor:
     """Constrain [g, t, E, C] dispatch tensors to E-over-model (and groups
-    over the data axes).  The router logits are replicated over the model
-    axis, so each rank builds its experts' slice locally."""
+    over the data axes), the reference's pin; the identity without a
+    mesh."""
     if _ATTN_MESH["mesh"] is None:
         return x
-    from repro_torch.dist.collectives import constrain
-    return constrain(x, _ATTN_MESH["mesh"], _dispatch_spec(x.shape),
-                     tag="dispatch")
+    return _pin(x, _dispatch_spec(x.shape), "dispatch")
+
+
+def _dispatch(disp, xg):
+    """Each expert's capacity slots [g, E, C, d] of the tokens ``xg``
+    [g, t, d] by the one-hots ``disp`` [g, t, E, C]: a product over the
+    flattened (E, C)."""
+    g, t, e, c = disp.shape
+    return torch.bmm(disp.reshape(g, t, e * c).transpose(1, 2),
+                     xg).reshape(g, e, c, xg.shape[-1])
+
+
+def _ffn_in(xe, w):
+    return torch.einsum("gecd,edf->gecf", xe, w)
+
+
+def _act(hgate, hup):
+    return (F.silu(hgate.float()) * hup.float()).to(hgate.dtype)
+
+
+def _ffn_out(hact, w):
+    return torch.einsum("gecf,efd->gecd", hact, w)
+
+
+def _combine(comb, ye):
+    """The tokens [g, t, d] (f32) of the experts' outputs ``ye`` [g, E, C,
+    d] by the combine weights ``comb`` [g, t, E, C]: a product over the
+    flattened (E, C)."""
+    g, e, c, d = ye.shape
+    return torch.bmm(comb.reshape(g, comb.shape[1], e * c),
+                     ye.float().reshape(g, e * c, d))
+
+
+def _experts(disp, xg, comb, w_gate, w_up, w_down):
+    """The dispatch, the experts' SwiGLU FFN and the combine."""
+    xe = _dispatch(disp, xg)
+    return _combine(comb, _ffn_out(_act(_ffn_in(xe, w_gate),
+                                        _ffn_in(xe, w_up)), w_down))
+
+
+def _placed_experts(disp, xg, comb, params):
+    """:func:`_experts` with each product on each rank's (g, E, C) blocks
+    (``collectives.local_map``), as the router runs: the one-hots pinned E
+    over model and the groups over the data axes where they divide
+    (:func:`_dispatch_spec`; the combine's tokens over the data axes when
+    the groups are whole, :func:`_combine_spec`), the tokens ``xg`` as
+    they come (groups over data, whole over model).  An expert weight's
+    FSDP split (its input features over a data axis) is gathered where
+    the groups take that axis; else it stays, and the products split
+    their features there (pending sums settled before the activation and
+    before the combine), as for a decode step's one group.  The
+    combine's output is a pending sum over the axes that split E; each
+    weight's gradient one over the axes that split the groups."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.models.layers import _entry
+    mesh = _ATTN_MESH["mesh"]
+    dspec = _dispatch_spec(disp.shape)
+    cspec = _combine_spec(comb.shape)
+    disp = _shard_dispatch(disp)
+    comb = _pin(comb, cspec, "dispatch")
+    g_spec, e_spec = dspec[0], dspec[2]
+    e_axes, g_axes = C._spec_axes(e_spec), C._spec_axes(g_spec)
+    t_axes = C._spec_axes(cspec[1])
+    f_axes = tuple(a for a in C.shard_axes(params["w_gate"], 1)
+                   if a not in g_axes)
+    wspec = (e_spec, _entry(f_axes), None)
+    w_gate, w_up, w_down = (C.constrain(params[k], mesh, wspec,
+                                        tag="experts")
+                            for k in ("w_gate", "w_up", "w_down"))
+    split = (g_spec, e_spec, None, _entry(f_axes))    # [g,E,C,d or f]
+    whole = (g_spec, e_spec, None, None)
+    xs = (g_spec, None, _entry(f_axes))
+    xe = C.local_map(_dispatch, mesh, (dspec, xs), split,
+                     grad_sum_axes=[(), e_axes])(
+        disp, C.constrain(xg, mesh, xs, tag="experts"))
+
+    def product(fn, a, w):
+        return C.settle(C.local_map(fn, mesh, (split, wspec), whole,
+                                    grad_sum_axes=[(), g_axes],
+                                    out_sum_axes=f_axes)(a, w),
+                        tag="experts")
+
+    hact = _act(product(_ffn_in, xe, w_gate), product(_ffn_in, xe, w_up))
+    ye = product(_ffn_out, C.constrain(hact, mesh, split, tag="experts"),
+                 w_down)
+    return C.local_map(_combine, mesh, (cspec, whole),
+                       (cspec[0], cspec[1], None),
+                       grad_sum_axes=[(), t_axes],
+                       out_sum_axes=e_axes)(comb, ye)
 
 
 def init_moe(generator, d_model: int, d_ff: int, n_experts: int,
@@ -204,30 +290,12 @@ def moe_layer(params: Dict, x: torch.Tensor, *, top_k: int,
                 params["w_down"], dist_mesh)
             return out.reshape(b, s, d).to(x.dtype), aux
 
-    disp = _shard_dispatch(disp)
-    comb = _shard_dispatch(comb)
-
-    # the dispatch and combine einsums as products over the flattened
-    # (E, C), E leading: torch 2.11's DTensor flattens a split E only
-    # there (``einsum`` puts C first).  The gradient pins pass plain
-    # tensors as they are.
-    xe = torch.bmm(disp.reshape(g, gsz, e * capacity).transpose(1, 2),
-                   xg).reshape(g, e, capacity, d)                # [g,E,C,d]
-    # each einsum's backward views the gradient of its output
-    hgate = C.grad_contiguous(torch.einsum("gecd,edf->gecf", xe,
-                                           params["w_gate"]))
-    hup = C.grad_contiguous(torch.einsum("gecd,edf->gecf", xe,
-                                         params["w_up"]))
-    hact = (F.silu(hgate.float()) * hup.float()).to(x.dtype)
-    ye = torch.einsum("gecf,efd->gecd", hact, params["w_down"])
-    # the combine's backward would leave C split beside E
-    ye = C.grad_placed_as(ye.float().reshape(g, e * capacity, d),
-                          tag="dispatch")
-    if pinned:
-        comb = _pin(comb, _combine_spec(comb.shape), "dispatch")
-    out = torch.bmm(comb.reshape(g, gsz, e * capacity), ye)      # [g,t,d]
-    if pinned:
-        out = C.constrain_like(out, xg_in, tag="dispatch")
+    if not pinned:
+        out = _experts(disp, xg, comb, params["w_gate"], params["w_up"],
+                       params["w_down"])
+    else:
+        out = C.constrain_like(_placed_experts(disp, xg, comb, params),
+                               xg_in, tag="dispatch")
     # the output's gradient comes back split like the residual: its view
     # back to the groups flattens the batch and the sequence
     return C.grad_flattenable(out.reshape(b, s, d).to(x.dtype),

@@ -51,10 +51,12 @@ def _pinned_recurrence(local, ins, out_shapes, weights: int = 0,
     """``local(*ins)`` on each rank's blocks under the pinned mesh, as
     the pinned flash branch runs (``layers._pinned_flash``): each input
     pinned batch over the data axes and replicated over model
-    (``layers.replicate_model``'s spec), its outputs (of the global
-    ``out_shapes``) placed the same way.  Sound because the batch rows
-    of both recurrences are independent.  ``heads`` names the dim that
-    holds the heads, in each input and then in each output: where the
+    (``layers.replicate_model``'s spec; a batch that spec holds whole
+    split over the data axes that divide it, ``layers._batch_blocks``),
+    its outputs (of the global ``out_shapes``) placed the same way.
+    Sound because the batch rows of both recurrences are independent.
+    ``heads`` names the dim that holds the heads, in each input and then
+    in each output: where the
     model axis divides them (and carries no batch), that dim goes over
     model too, as XLA splits the chunked recurrence's heads; its heads
     are independent as well.  ``ins[1:1 + weights]`` are weights shared
@@ -73,9 +75,15 @@ def _pinned_recurrence(local, ins, out_shapes, weights: int = 0,
         specs = [spec[:d] + ("model",) + spec[d + 1:]
                  for spec, d in zip(specs, heads)]
         tag = "recurrence_heads"
+    bspec = layers._b_spec(ins[0].shape[0])
+    if bspec is None:   # a batch the pin holds whole: split it
+        bspec = layers._batch_blocks(
+            ins[0].shape[0], skip=("model",) if tag != "replicate_model"
+            else ())
+        specs = [spec if i in shared else (bspec,) + spec[1:]
+                 for i, spec in enumerate(specs)]
     in_specs, out_specs = specs[:len(ins)], specs[len(ins):]
     pinned = [layers._pin(t, spec, tag) for t, spec in zip(ins, in_specs)]
-    bspec = layers._b_spec(ins[0].shape[0])
     axes = () if bspec is None else (
         (bspec,) if isinstance(bspec, str) else tuple(bspec))
     grad_axes = [axes if i in shared else () for i in range(len(ins))]
@@ -555,6 +563,20 @@ def _slstm_scan(pre, r, bias, carry0):
     return hs, (c, n, h)
 
 
+def _recur(h, r):
+    """The sLSTM's recurrent product of a decode step, h [B,H,hd] by r
+    [H,hd,4hd]: under a pinned mesh on each rank's blocks, as the scan's
+    (:func:`_pinned_recurrence`, ``r`` whole on every rank)."""
+    def local(hl, rl):
+        return torch.einsum("bhd,hdk->bhk", hl, rl)
+
+    if layers._ATTN_MESH["mesh"] is None:
+        return local(h, r)
+    return _pinned_recurrence(local, (h, r),
+                              [tuple(h.shape[:2]) + (r.shape[-1],)],
+                              weights=1)
+
+
 def init_slstm(generator, d_model: int, *, n_heads: int,
                dtype=torch.bfloat16, device=None) -> Dict:
     hd = d_model // n_heads
@@ -592,7 +614,7 @@ def slstm_block(params: Dict, x: torch.Tensor, *, n_heads: int,
                                 device=x.device)
             carry = (zeros, zeros, zeros)
         c, n, h = carry
-        gates = pre[:, 0] + torch.einsum("bhd,hdk->bhk", h, r) + bias
+        gates = pre[:, 0] + _recur(h, r) + bias
         carry = _slstm_gates(gates, c, n)
         ys = carry[2][:, None]
     else:

@@ -154,39 +154,14 @@ def gloo_rank(rank, params, cases, budget):
     return {c[0]: _serve(c, params[c[1]], mesh, budget) for c in cases}
 
 
-_JAX_SERVE = textwrap.dedent("""
-    import dataclasses, json, os, sys
-    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
-                               "--xla_backend_optimization_level=0 "
-                               "--xla_cpu_multi_thread_eigen=false "
-                               "intra_op_parallelism_threads=1")
-    import jax, jax.numpy as jnp, numpy as np
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from repro.configs import get_config
+#: the dots' FLOPs of a compiled module by ``analyze_hlo``'s traversal:
+#: loops times their trips, a conditional's larger branch, fusions and
+#: calls (``dots(HloModule(text))``); pasted into the JAX subprocesses
+#: here and in ``tests/test_torch_dryrun_train.py``
+HLO_DOTS = textwrap.dedent("""
     from repro.launch.hlo_analysis import (
-        _BRANCHES_RE, _CALLS_RE, _TO_APPLY_RE, _WHILE_RE, HloModule,
-        _dot_flops, analyze_hlo)
-    from repro.models import layers as L
-    from repro.models.api import model_fns
-    from repro.parallel import sharding as shd
-    inp = dict(np.load(sys.argv[1]))
-    cases, grid = json.loads(sys.argv[3])
-    out, meta = {}, {}
+        _BRANCHES_RE, _CALLS_RE, _TO_APPLY_RE, _WHILE_RE, _dot_flops)
 
-    def unflat(prefix):
-        tree = {}
-        for key, v in inp.items():
-            if not key.startswith(prefix + "|"):
-                continue
-            *path, leaf = key.split("|", 1)[1].split("/")
-            node = tree
-            for p in path:
-                node = node.setdefault(p, {})
-            node[leaf] = jnp.asarray(v)
-        return tree
-
-    # the dots' FLOPs by analyze_hlo's traversal: loops times their
-    # trips, a conditional's larger branch, fusions and calls
     def dots(mod, comp=None, memo=None):
         comp = comp or mod.entry
         memo = {} if memo is None else memo
@@ -216,6 +191,38 @@ _JAX_SERVE = textwrap.dedent("""
                     total += dots(mod, m.group(1), memo)
         memo[comp] = total
         return total
+""")
+
+_JAX_SERVE = textwrap.dedent("""
+    import dataclasses, json, os, sys
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                               "--xla_backend_optimization_level=0 "
+                               "--xla_cpu_multi_thread_eigen=false "
+                               "intra_op_parallelism_threads=1")
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from repro.configs import get_config
+    from repro.launch.hlo_analysis import HloModule, analyze_hlo
+    from repro.models import layers as L
+    from repro.models.api import model_fns
+    from repro.parallel import sharding as shd
+    inp = dict(np.load(sys.argv[1]))
+    cases, grid = json.loads(sys.argv[3])
+    out, meta = {}, {}
+
+    def unflat(prefix):
+        tree = {}
+        for key, v in inp.items():
+            if not key.startswith(prefix + "|"):
+                continue
+            *path, leaf = key.split("|", 1)[1].split("/")
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = jnp.asarray(v)
+        return tree
+
+    # HLO_DOTS
 
     mesh = Mesh(np.array(jax.devices()).reshape(grid), ("data", "model"))
     # imported once the 4 devices are up: the module asks for 512
@@ -295,7 +302,7 @@ _JAX_SERVE = textwrap.dedent("""
         meta[name] = info
     out["meta"] = np.asarray(json.dumps(meta))
     np.savez(sys.argv[2], **out)
-""")
+""").replace("# HLO_DOTS\n", HLO_DOTS)
 
 
 @pytest.fixture(scope="module")

@@ -230,7 +230,7 @@ def test_every_product_splits_four_ways(fake_mesh, arch, kind):
     backward's too) that the others split.  Where the heads do not
     divide, the projections' alone (a row-parallel ``wo`` reads the whole
     heads there: its weight's gradient is then a product of this rank's
-    columns, ``collectives.split_as``)."""
+    columns, ``layers._dense_mm``'s row-parallel form)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.launch.op_analysis import analyze

@@ -17,14 +17,16 @@ both conditions as a dispatch mode over the DTensor ops
 Every family's smoke config runs placed prefill, decode and one train
 step on a fake ``(2, 2)`` data x model mesh in this process (``meta``
 blocks: nothing is computed), under the check: no view may meet the
-first condition and no linear pointwise op the second.  The two rules
-are also held on hand-made cases, and the same cases run as real DTensor
-views and sums on this torch, which on torch 2.11 must refuse exactly
-what the rules refuse.  The budget is one the smoke weights do not fit
-in, so that the sharding rules split every projection over model as they
-do the full-width cells' (at the reference's 16 GB the smoke configs run
-pure data parallel, and the model axis splits nothing a view could
-refuse).
+first condition and no linear pointwise op the second.  The same steps
+(and the train step pure data parallel) run under
+``launch.op_analysis.DotCheck``: no product may reach DTensor's sharding
+propagation, whose split of it differs between torch versions at full
+width; every one runs on each rank's blocks (``collectives.local_map``).
+The two rules are also held on hand-made cases, and the same cases run
+as real DTensor views and sums on this torch, which on torch 2.11 must
+refuse exactly what the rules refuse.  The budget is one the smoke
+weights do not fit in, so that the sharding rules split every projection
+over model as they do the full-width cells'.
 """
 
 import pytest
@@ -38,6 +40,11 @@ GRID = (2, 2)
 BATCH, SEQ = 4, 16
 #: bytes the smoke weights do not fit in: every projection goes over model
 TP_BUDGET = {"hbm_bytes": 1e4, "mem_elems": 8 * 1024 ** 3}
+#: the reference's 16 GB and its ``HBM_ELEMS``: at :data:`DP_SEQ` tokens
+#: a sequence the smoke weights fit and every matmul runs pure data
+#: parallel (at :data:`SEQ` the cost model still splits them over model)
+REF_BUDGET = {"hbm_bytes": 16e9, "mem_elems": 8 * 1024 ** 3}
+DP_SEQ = 128
 ARCHS = ["llama3.2-1b", "smollm-360m", "gemma3-12b", "gemma3-4b",
          "zamba2-7b", "xlstm-350m", "whisper-tiny", "granite-moe-1b-a400m",
          "qwen3-moe-235b-a22b", "qwen2-vl-72b"]
@@ -55,16 +62,18 @@ def mesh():
         end_world()
 
 
-def _built(arch, kind, mesh):
+def _built(arch, kind, mesh, budget=None, seq=SEQ):
     """The dry run's builders (``launch.dryrun.train_on`` / ``serve_on``)
-    on the smoke config at :data:`BATCH` x :data:`SEQ` tokens."""
+    on the smoke config at :data:`BATCH` x ``seq`` tokens, at ``budget``
+    (:data:`TP_BUDGET` by default)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.shapes import sds
     from repro_torch.models.api import model_fns
+    budget = budget or TP_BUDGET
     cfg = get_config(arch, smoke=True)
     i32, f32 = torch.int32, torch.float32
-    b, s, d = BATCH, SEQ, cfg.d_model
+    b, s, d = BATCH, seq, cfg.d_model
     if kind == "train":
         batch = {"tokens": sds((b, s), i32), "labels": sds((b, s), i32)}
         if cfg.family == "encdec":
@@ -72,7 +81,7 @@ def _built(arch, kind, mesh):
         if cfg.family == "vlm":
             batch["positions"] = sds((b, 3, s), i32)
             batch["vision_embeds"] = sds((b, 4, d), f32)
-        return dryrun.train_on(cfg, mesh, batch, **TP_BUDGET)
+        return dryrun.train_on(cfg, mesh, batch, **budget)
     kw = {"device": "meta"}
     if cfg.family == "encdec":
         kw["enc_len"] = s
@@ -85,7 +94,7 @@ def _built(arch, kind, mesh):
     else:
         inputs, tokens = {"tokens": sds((b, 1), i32)}, b
     return dryrun.serve_on(cfg, mesh, kind, inputs, cache,
-                           tokens_per_step=tokens, **TP_BUDGET)
+                           tokens_per_step=tokens, **budget)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -103,6 +112,32 @@ def test_no_view_torch_2_11_refuses(mesh, arch, kind):
     finally:
         L.set_attention_mesh(None)
     assert not check.refused, check.refused[:4]
+
+
+@pytest.mark.parametrize("kind", KINDS + ["train_dp"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_no_dot_left_to_dtensor(mesh, arch, kind):
+    """Every product of the placed step (a train step's backward too)
+    runs on each rank's blocks (``collectives.local_map``): none reaches
+    ``aten.mm`` / ``bmm`` / ``addmm`` / ``baddbmm`` with a DTensor
+    operand, whose split DTensor's sharding propagation would choose,
+    differently on torch 2.11 and 2.13 at full width.  ``train_dp`` is
+    the train step at the reference's 16 GB and :data:`DP_SEQ` tokens a
+    sequence, where every matmul runs pure data parallel."""
+    from repro_torch.launch.op_analysis import DotCheck
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import pure_dp
+    try:
+        if kind == "train_dp":
+            built = _built(arch, "train", mesh, REF_BUDGET, DP_SEQ)
+            assert pure_dp(built.decisions), built.decisions
+        else:
+            built = _built(arch, kind, mesh)
+        with DotCheck() as check:
+            built.step(*built.args)
+    finally:
+        L.set_attention_mesh(None)
+    assert not check.left, (len(check.left), check.left[:4])
 
 
 #: (placements, shape, new_shape, refused by torch 2.11, by torch 2.13)

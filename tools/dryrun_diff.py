@@ -1,6 +1,7 @@
 """Two runs of the port's production dry run side by side: for each
 cell, its status in each, whether the per-device argument bytes agree,
-the per-device dot FLOPs and wire bytes of each, and, where the dots
+the per-device dot FLOPs and wire bytes of each (and the products a
+run left to DTensor's propagation, where it left any), and, where the dots
 differ and both records carry ``dot_flops_by_site`` (``python -m
 repro_torch.launch.dryrun --dot-sites``), the ``SITES`` sites whose dots
 differ most.
@@ -74,7 +75,9 @@ def compare(a: dict, b: dict) -> list:
             da, db = ra["dot_flops_per_device"], rb["dot_flops_per_device"]
             row.update(args_equal=_args(ra) == _args(rb),
                        argument_bytes=[_args(ra), _args(rb)],
-                       dot_flops=[da, db], wire_bytes=[_wire(ra), _wire(rb)])
+                       dot_flops=[da, db], wire_bytes=[_wire(ra), _wire(rb)],
+                       dots_left=[ra.get("dots_left_to_dtensor"),
+                                  rb.get("dots_left_to_dtensor")])
             if da != db and "dot_flops_by_site" in ra \
                     and "dot_flops_by_site" in rb:
                 row["sites"] = site_diff(ra["dot_flops_by_site"],
@@ -144,6 +147,8 @@ def main(argv=None) -> int:
             line += (f"  args {'=' if r['args_equal'] else '!='}"
                      f"  dots {da:.6e} {db:.6e}"
                      f"{'' if da == db else ' *'}  wire {wa:.6e} {wb:.6e}")
+            if any(r["dots_left"]):
+                line += "  left to DTensor {} {}".format(*r["dots_left"])
         print(line)
         for site, sa, sb in r.get("sites", []):
             print(f"    {sa:.4e} {sb:.4e}  {site}")
